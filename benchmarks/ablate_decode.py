@@ -31,13 +31,16 @@ def main():
     import jax.numpy as jnp
     from flashattention_kernel_project_tpu import models
     from flashattention_kernel_project_tpu.models import engine
+    from flashattention_kernel_project_tpu.utils import platform
+
+    platform.require_gpu()
+    platform.enable_compile_cache()
     from flashattention_kernel_project_tpu.models import transformer as tfm
     from flashattention_kernel_project_tpu.ops.flash_decode import flash_decode
 
     cfg = models.TransformerConfig(
         vocab_size=32000, d_model=2048, n_layers=args.layers, n_heads=16,
         n_kv_heads=4, d_head=128, d_ff=5504, dtype=jnp.bfloat16,
-        block_q=1024, block_k=1024,
     )
     params = models.init_params(cfg, jax.random.PRNGKey(0))
     b = args.batch

@@ -2,9 +2,9 @@
 """End-to-end walkthrough: train a tiny GQA transformer, checkpoint it,
 resume, then serve it (prefill + KV-cached decode with sampling).
 
-Runs anywhere: on a machine with a TPU attached it uses the chip; on CPU
-the kernels fall back to interpret mode automatically. For the multi-chip
-version of the train step see parallel/train.py and __graft_entry__.py's
+On a GPU the kernels run compiled; elsewhere the script runs them in the
+Pallas interpreter (slow, for a quick look). For the multi-device version
+of the train step see parallel/train.py and __graft_entry__.py's
 dryrun_multichip.
 
     python examples/train_and_serve.py [--steps 20]
@@ -42,8 +42,6 @@ def main():
         d_head=32,
         d_ff=256,
         dtype=jnp.float32,
-        block_q=64,
-        block_k=64,
     )
     params = models.init_params(cfg, jax.random.PRNGKey(0))
 
@@ -129,4 +127,12 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import jax
+
+    from flashattention_kernel_project_tpu.utils.platform import (
+        interpret_kernels,
+    )
+
+    # off the GPU the kernels run in the Pallas interpreter
+    with interpret_kernels(jax.default_backend() != "gpu"):
+        main()

@@ -1,16 +1,14 @@
-"""flashattention_kernel_project_tpu — TPU-native quantized attention-inference engine.
+"""flashattention_kernel_project_tpu — a quantized attention engine in JAX.
 
-A brand-new JAX / XLA / Pallas / pjit framework reconstructing the capability
-ladder of the CUDA kernel-study reference `jeehun98/FlashAttention_Kernel_Project`:
-
-  naive GEMM -> VMEM-blocked GEMM -> MXU bf16 GEMM -> batched GEMM ->
-  fused-epilogue GEMM -> softmax microkernels -> online/streaming softmax ->
-  fused FlashAttention forward -> split-KV flash decode -> quantized
-  (int8/fp8) weight + KV-cache paths -> multi-chip sharded attention
-  (head/TP sharding, ring/context-parallel attention, distributed decode).
+Built on the capabilities of the CUDA kernel-study reference
+`jeehun98/FlashAttention_Kernel_Project`: online/streaming softmax ->
+fused FlashAttention forward and backward -> split-KV flash decode ->
+8-bit (int8/fp8) weight and KV-cache paths -> multi-device sharded
+attention (head/TP sharding, ring/context-parallel attention, distributed
+decode).
 
 Layout (mirrors SURVEY.md section 7 build plan):
-  ops/       Pallas MXU/VPU kernels (the L1/L2 layer of the reference)
+  ops/       attention kernels (Pallas through Triton) and their references
   models/    flagship GQA transformer + decode engine built on ops/
   parallel/  mesh, shard_map wrappers, ring attention, distributed decode
   utils/     bench harness, CPU oracles, error metrics (the reference's

@@ -16,7 +16,7 @@ from typing import Any
 
 import jax
 
-try:  # orbax is baked into the image; gate anyway for minimal installs
+try:  # optional: training and serving run without it; checkpointing needs it
     import orbax.checkpoint as ocp
 
     _HAS_ORBAX = True
@@ -48,7 +48,10 @@ def save_checkpoint(
     """Write an atomic checkpoint directory: params (+ opt_state) via orbax,
     config + step as JSON sidecars. Returns the checkpoint path."""
     if not _HAS_ORBAX:
-        raise RuntimeError("orbax-checkpoint is not available")
+        raise RuntimeError(
+            "checkpointing needs the orbax-checkpoint package, which is "
+            "not installed"
+        )
     path = os.path.abspath(path)
     ckptr = ocp.StandardCheckpointer()
     # params and opt_state are SEPARATE items so a params-only restore (the
@@ -78,7 +81,10 @@ def restore_checkpoint(
     to restore directly into a mesh layout. Without a template, orbax
     restores with the saved metadata on the default device."""
     if not _HAS_ORBAX:
-        raise RuntimeError("orbax-checkpoint is not available")
+        raise RuntimeError(
+            "checkpointing needs the orbax-checkpoint package, which is "
+            "not installed"
+        )
     path = os.path.abspath(path)
     ckptr = ocp.StandardCheckpointer()
 

@@ -1,7 +1,7 @@
 """Inference engine: KV-cache management, prefill, decode, generation.
 
-This is the serving layer the BASELINE.json north star asks for around the
-kernels: slot-based batch of sequences, bf16 or INT8 KV cache (per-token
+The serving layer around the kernels: slot-based batch of sequences, bf16 or
+INT8 KV cache (per-token
 scales), prefill through the fused flash-attention kernel, decode through
 the split-KV kernel, greedy/temperature sampling. The decode shapes are
 exactly the reference's streaming-kernel problem (SURVEY.md section 2.6).
@@ -62,10 +62,9 @@ def init_cache(
 ) -> KVCache:
     """Allocate a linear KV cache. quantized=True stores 8-bit values
     (quant_fmt: "int8" or "fp8") + per-token scales: choose it for CAPACITY
-    (half the cache HBM -> 2x batch or context at fixed memory), not
-    latency — per-step it measures ~6-20% behind bf16 (the append quantizes
-    and writes 4 buffers/layer vs 2; docs/perf_journal.md). Pair with
-    quantize_decode_params for weights."""
+    (half the cache memory -> 2x batch or context at fixed memory), not
+    latency: the append quantizes and writes 4 buffers/layer vs 2. Pair
+    with quantize_decode_params for weights."""
     shape = (batch, cfg.n_kv_heads, max_len, cfg.d_head)
     L = cfg.n_layers
     if quantized:
@@ -194,10 +193,7 @@ def prefill(
             k.transpose(0, 2, 1, 3),
             v.transpose(0, 2, 1, 3),
             causal=True,
-            block_q=min(cfg.block_q, t),
-            block_k=min(cfg.block_k, t),
             interpret=interpret,
-            stable=cfg.attn_stable,
             window=cfg.attn_window,
             sinks=cfg.attn_sinks,
         )
@@ -283,10 +279,7 @@ def extend(
         qh = q.transpose(0, 2, 1, 3).astype(cfg.dtype)
         ragged_kw = dict(
             causal=True,
-            block_q=min(cfg.block_q, max(t, 8)),
-            block_k=min(cfg.block_k, k_all[i].shape[2]),
             interpret=interpret,
-            stable=cfg.attn_stable,
             window=cfg.attn_window,
             sinks=cfg.attn_sinks,
         )
@@ -384,13 +377,9 @@ def quantize_decode_params(
 def _proj(x, layer, name, out_dtype):
     """x [B, T, K] @ layer weight `name` -> [B, T, N].
 
-    int8 weights run as `x @ w_q.astype(bf16) * scale`: XLA fuses the
-    s8->bf16 convert into the matmul's operand read (no HBM materialization),
-    streaming half the weight bytes. Measured at decode shape (M=8, K=2048,
-    N=11008, v5e): bf16 71.8 us, this form 32.6 us — 2.2x; the Pallas
-    fused-dequant kernel (ops.quant.matmul_int8_weights, kept as the
-    GEMM-ladder rung) is slower here because an 8-row output tile underfeeds
-    its block pipeline."""
+    int8 weights run as `x @ w_q.astype(bf16) * scale`, relying on XLA to
+    fuse the s8->bf16 convert into the matmul's operand read so the weight
+    streams in 8 bits (whether it does on the card is not measured yet)."""
     if name + "_q" in layer:
         o = jax.lax.dot_general(
             x,
@@ -412,10 +401,9 @@ def _lm_head(params, x):
             preferred_element_type=jnp.float32,
         )
         return o * params["lm_head_s"][:, 0][None, :]
-    # f32 ACCUMULATE AND OUTPUT (no bf16 rounding of the logits): keeps
-    # greedy argmax identical between the decode and extend/verify paths
-    # — bf16-rounded logits flipped 28/192 near-tie argmaxes on chip
-    # (VERDICT r3 #5; benchmarks/bench_spec.py asserts identity again)
+    # f32 accumulate and output (no bf16 rounding of the logits): keeps
+    # greedy argmax identical between the decode and extend/verify paths,
+    # where bf16-rounded logits flip near-tie argmaxes
     return jnp.matmul(x, params["embed"].T,
                       preferred_element_type=jnp.float32)
 
@@ -551,8 +539,8 @@ def decode_steps(
     default; temperature + key samples inside the scan (each step folds in
     step0 + i, matching the per-step loop's stream exactly).
 
-    One dispatch instead of n_steps — the host round trip (~140 ms over a
-    tunnel, ~100 us local) leaves the per-token critical path entirely; the
+    One dispatch instead of n_steps — the host round trip leaves the
+    per-token critical path entirely; the
     scheduler's multi_step mode trades up to n_steps-1 wasted steps at
     EOS/budget for it."""
 
@@ -601,8 +589,8 @@ def decode_steps_paged(
     """decode_steps against the PAGED cache: n_steps greedy/sampled steps
     as one device-resident lax.scan (decode_step_paged + paged_append per
     step inside the scan) — the paged backend gets the same
-    one-dispatch-per-window amortization as the linear one (VERDICT r4
-    task 7: Scheduler(paged=True, multi_step=N)). tokens [B] ->
+    one-dispatch-per-window amortization as the linear one
+    (Scheduler(paged=True, multi_step=N)). tokens [B] ->
     ([B, n_steps], cache advanced n_steps)."""
 
     def body(carry, i):
@@ -698,8 +686,9 @@ def _sample(logits, temperature, key, step, top_k=None, top_p=None):
 # ---------------------------------------------------------------------------
 # Paged-cache decode (vLLM-style): the fragmentation-free serving backend.
 # Pages + block tables replace the per-slot padded linear cache; decode
-# attends through ops.paged_flash_decode (block table on the scalar-prefetch
-# channel). Prefill still runs through the linear path; its KV is scattered
+# attends through ops.paged_flash_decode (each KV tile gathered from the
+# pages the block table names). Prefill still runs through the linear path;
+# its KV is scattered
 # into pages with paged_insert.
 # ---------------------------------------------------------------------------
 
@@ -708,8 +697,8 @@ class PagedKVCache(NamedTuple):
     or int8 for a quantized pool); block_tables: [B, max_pages] int32
     (shared across layers — pages are allocated per sequence, each layer
     owns a same-shaped pool); lengths: [B] int32; k/v_scale_pages: tuple of
-    L arrays [n_pages, Hkv, 1, page] f32 lane-major per-token scales (int8
-    pools only)."""
+    L arrays [n_pages, Hkv, page, 1] f32 per-token scales (8-bit pools
+    only)."""
 
     k_pages: tuple
     v_pages: tuple
@@ -740,7 +729,7 @@ def init_paged_cache(
     quant_fmt: str = "int8",
 ) -> PagedKVCache:
     """quantized=True stores 8-bit pages (quant_fmt: "int8" or "fp8") +
-    lane-major per-token scale pages: half the pool HBM -> 2x the page
+    per-token scale pages: half the pool HBM -> 2x the page
     capacity at fixed memory (same capacity trade as the linear int8 cache,
     init_cache)."""
     shape = (n_pages, cfg.n_kv_heads, page_size, cfg.d_head)
@@ -750,7 +739,7 @@ def init_paged_cache(
     if quantized:
         assert quant_fmt in ("int8", "fp8"), quant_fmt
         qdt = jnp.int8 if quant_fmt == "int8" else jnp.float8_e4m3fn
-        s_shape = (n_pages, cfg.n_kv_heads, 1, page_size)
+        s_shape = (n_pages, cfg.n_kv_heads, page_size, 1)
         return PagedKVCache(
             k_pages=tuple(jnp.zeros(shape, qdt) for _ in range(L)),
             v_pages=tuple(jnp.zeros(shape, qdt) for _ in range(L)),
@@ -811,7 +800,7 @@ def _scatter_pages_q(
 ):
     """Quantized variant of _scatter_pages: per-token 8-bit quantization of
     the prefix (int8 or fp8 pool dtype), values into the 8-bit pages, scales
-    into the lane-major scale pages. Same donation discipline."""
+    into the scale pages. Same donation discipline."""
     from flashattention_kernel_project_tpu.ops.quant import (
         quantize_fp8_tokenwise,
     )
@@ -839,10 +828,10 @@ def _scatter_pages_q(
         vp = jax.lax.dynamic_update_slice(
             vp, blk(v_q, vp.dtype)[None], (table_row[j], 0, 0, 0)
         )
-        # scales: [Hkv, hi-lo, 1] -> lane-major [1, Hkv, 1, page]
+        # scales: [Hkv, hi-lo, 1] -> [1, Hkv, page, 1]
         def sblk(scales, lo=lo - base, hi=hi - base):
-            s_ = jnp.zeros((hkv, 1, page), jnp.float32)
-            return s_.at[:, 0, : hi - lo].set(scales[:, lo:hi, 0])
+            s_ = jnp.zeros((hkv, page, 1), jnp.float32)
+            return s_.at[:, : hi - lo].set(scales[:, lo:hi])
 
         ksp = jax.lax.dynamic_update_slice(
             ksp, sblk(k_s)[None], (table_row[j], 0, 0, 0)
@@ -919,9 +908,8 @@ def cache_from_pages(
         kp = jnp.take(cache.k_pages[li], ids, axis=0)  # [ns, Hkv, page, D]
         vp = jnp.take(cache.v_pages[li], ids, axis=0)
         if cache.quantized:
-            # lane-major scales [ns, Hkv, 1, page] -> [ns, Hkv, page, 1]
-            ks = jnp.swapaxes(jnp.take(cache.k_scale_pages[li], ids, 0), -1, -2)
-            vs = jnp.swapaxes(jnp.take(cache.v_scale_pages[li], ids, 0), -1, -2)
+            ks = jnp.take(cache.k_scale_pages[li], ids, 0)
+            vs = jnp.take(cache.v_scale_pages[li], ids, 0)
             kp = kp.astype(jnp.float32) * ks
             vp = vp.astype(jnp.float32) * vs
         k_lin = jnp.moveaxis(kp, 0, 1).reshape(hkv, -1, d)[:, :s]
@@ -1104,7 +1092,7 @@ def extend_paged(
 # which preserves the target model's sampling distribution EXACTLY. Either
 # way the win is wall-clock — one target extend of k+1 tokens replaces up
 # to k+1 sequential target decode steps, and prefill-shaped extends run at
-# MXU throughput while decode is HBM-bound.
+# tensor-core throughput while decode is bandwidth-bound.
 # ---------------------------------------------------------------------------
 
 def speculative_accept(p, q, d, rng) -> list[int]:

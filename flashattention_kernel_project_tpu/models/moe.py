@@ -1,12 +1,13 @@
 """Mixture-of-Experts FFN + expert parallelism (EP) over the mesh.
 
 The reference has no MoE (SURVEY.md section 2.9 lists EP as absent); this
-fills the checklist row the TPU-native way: GShard-style DENSE dispatch —
-routing becomes two one-hot einsums that run on the MXU with fully static
+fills the checklist row with GShard-style DENSE dispatch —
+routing becomes two one-hot einsums that run as matrix products with fully
+static
 shapes (no gather/scatter, no dynamic shapes under jit), and expert
 parallelism is the expert dimension of those einsums sharded over a mesh
 axis with one psum to combine. The token->expert "channel" here plays the
-role the reference's producer/consumer SMEM channels play intra-chip
+role the reference's producer/consumer shared-memory channels play in a kernel
 (flashattn_streaming_16x16_mw_v5_warp_specialize.cu:160-185): data routed
 between compute roles, except the roles are chips and the sync is an XLA
 collective.
@@ -73,7 +74,7 @@ def _top_k_dispatch(probs: jax.Array, top_k: int, capacity: int):
 
     probs: [T, E] router softmax. Returns (dispatch, combine, aux_loss):
     dispatch/combine are [T, E, C] one-hot(-weighted) tensors — the two
-    einsum operands that replace gather/scatter on TPU.
+    einsum operands that replace gather/scatter.
     """
     t, e = probs.shape
     chosen_gates = []
@@ -133,7 +134,7 @@ def _top_k_choices(probs: jax.Array, top_k: int):
 
 
 def _top_k_dispatch_sort(probs: jax.Array, top_k: int, capacity: int):
-    """Sort-based RAGGED dispatch (VERDICT r4 task 10): same routing and
+    """Sort-based RAGGED dispatch: same routing and
     drop semantics as _top_k_dispatch, but O(T*k) index tensors instead of
     the dense [T, E, C] one-hots — the dense pair is 2 * T*E*C f32
     (2 x 671 MB at b4/seq2048/E8, the r3 bench OOM); this is ~100 KB.
@@ -178,7 +179,7 @@ _DENSE_DISPATCH_BYTES = 64 << 20
 
 
 def _expert_ffn(w1: jax.Array, w2: jax.Array, expert_in: jax.Array):
-    """[E, C, D] -> [E, C, D] through each expert's gelu MLP (batched MXU)."""
+    """[E, C, D] -> [E, C, D] through each expert's gelu MLP (batched matmuls)."""
     h = jax.nn.gelu(jnp.einsum("ecd,edf->ecf", expert_in, w1,
                                preferred_element_type=jnp.float32))
     return jnp.einsum("ecf,efd->ecd", h, w2,

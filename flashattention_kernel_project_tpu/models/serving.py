@@ -1,7 +1,7 @@
 """Continuous-batching serving scheduler.
 
-The BASELINE.json north star calls for "continuous batching across hosts"
-around the decode kernels. This is the single-host slot scheduler: a fixed
+Continuous batching around the decode kernels, as a single-host slot
+scheduler: a fixed
 decode batch of B slots, new requests prefilled (bucketed prompt lengths to
 bound recompiles) and inserted into free slots while other slots keep
 decoding; finished slots are freed immediately. The decode step always runs
@@ -714,8 +714,8 @@ class Scheduler:
             return self._spec_round()
         if self.multi_step > 1:
             return self._multi_step_round()
-        # transient device faults (remote worker restarts, observed as
-        # UNAVAILABLE) retry with a cooldown; real errors fail fast
+        # transient runtime faults (worker restarts, seen as UNAVAILABLE)
+        # retry with a cooldown; real errors fail fast
         # (SURVEY §5.3 — the serving loop is where liveness matters)
         logits, self.cache = with_retries(
             self._decode,

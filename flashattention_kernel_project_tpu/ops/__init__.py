@@ -1,13 +1,7 @@
-from flashattention_kernel_project_tpu.ops.gemm import (  # noqa: F401
-    matmul,
-    matmul_xla,
-    matmul_bf16,
-    batched_matmul,
-    matmul_fused_epilogue,
-    batched_matmul_softmax_epilogue,
-)
+"""Attention kernels for Hopper (Pallas through Triton), their plain
+references, the online-softmax merge and the 8-bit quantizers."""
+
 from flashattention_kernel_project_tpu.ops.softmax import (  # noqa: F401
-    softmax,
     SoftmaxState,
     init_state,
     tile_state,
@@ -18,33 +12,32 @@ from flashattention_kernel_project_tpu.ops.softmax import (  # noqa: F401
 from flashattention_kernel_project_tpu.ops.flash_attention import (  # noqa: F401
     flash_attention,
     flash_attention_with_lse,
-    k_max_norm,
     flash_attention_ragged,
     flash_attention_kv_quant,
+    flash_attention_kv_quant_with_lse,
     flash_attention_ragged_kv_quant,
+    reference_attention,
+    select_impl,
 )
 from flashattention_kernel_project_tpu.ops.flash_decode import (  # noqa: F401
     flash_decode,
     flash_decode_int8,
     flash_decode_fp8,
+    fold_partials,
     merge_partials,
-)
-from flashattention_kernel_project_tpu.ops.streaming import (  # noqa: F401
-    streaming_decode,
 )
 from flashattention_kernel_project_tpu.ops.quant import (  # noqa: F401
     quantize_int8,
     dequantize_int8,
     quantize_fp8,
+    quantize_fp8_tokenwise,
     dequantize_fp8,
     quantize_kv,
     quantize_fp8_weights,
-    matmul_int8,
-    matmul_int8_weights,
-    matmul_fp8_weights,
 )
-from flashattention_kernel_project_tpu.ops.paged_decode import (  # noqa: F401,E402
+from flashattention_kernel_project_tpu.ops.paged_decode import (  # noqa: F401
     PagePool,
+    gather_pages,
     paged_append,
     paged_append_chunk,
     paged_append_chunk_quant,

@@ -1,36 +1,35 @@
-"""Fused FlashAttention forward — the reference ladder's endpoint, TPU-native.
+"""Fused FlashAttention forward and backward for Hopper, Pallas through Triton.
 
 Reference lineage (SURVEY.md sections 2.1/2.4/2.5): QK^T tiled
 (qk_tiled_5_1_1.cu:28-101) + online softmax with O-rescale
-(flashattn_forward_fused_5_4_2.cu:150-204, the corrected
-`alpha = exp(m_old-m_new)*l_old/l_new` discipline) + WMMA PV
-(flashattn_forward_wmma_v5_cp_async.cu:394-443), with K/V streamed through
-a double-buffered pipeline (ibid:221-251).
+(flashattn_forward_fused_5_4_2.cu:150-204) + tensor-core PV with f32
+accumulation (flashattn_forward_wmma_v5_cp_async.cu:394-443), with K/V
+tiles pipelined into shared memory (ibid:221-251).
 
-TPU design (NOT a translation):
-  * one Pallas kernel; grid = (batch, q_heads, q_blocks, kv_blocks) with the
-    KV dimension innermost and "arbitrary" so a revolving (m, l, acc) carry
-    lives in VMEM scratch across KV steps — the warp-level (m,l) registers of
-    the reference become whole-block VPU state;
-  * QK^T and PV hit the MXU via jnp.dot with fp32 accumulation (the WMMA
-    16x16 fragment dance is simply a 128x128-tiled dot here);
-  * the cp.async ping-pong is Pallas' implicit multi-buffered grid pipeline:
-    block t+1's HBM->VMEM DMA overlaps compute on block t;
-  * GQA folds the KV-head mapping into the K/V index_map (heads were only a
-    grid dim in the reference);
-  * causal + sequence-tail masks are explicit iota comparisons — the
-    reference assumed multiple-of-tile sizes everywhere
-    (flashattn_forward_wmma_v5_cp_async.cu:114); we mask instead;
-  * fully-masked KV blocks are skipped with pl.when (compute-side skip).
+Design:
+  * one program owns a q tile of one (batch, q-head) and loops over the KV
+    tiles it can see; the (m, l, acc) carry lives in registers for the whole
+    loop, and Triton's `num_stages` pipelines the K/V loads (the reference's
+    cp.async double buffer);
+  * GQA is index arithmetic: q-head h reads KV head h // group;
+  * causal, per-row `q_offset`, per-row KV length, sliding window and
+    attention sinks are masks built from positions, and the loop bounds skip
+    every KV tile a tile of rows cannot see (sink tiles, then the band);
+  * an 8-bit K/V cache (int8 or fp8 e4m3) is dequantised after the load: K's
+    per-token scale multiplies the score columns, V's folds into the
+    probabilities, so both products stay plain tensor-core dots;
+  * softmax runs in the log2 domain (exp2); the emitted logsumexp is
+    natural-log, the carry `parallel/ring_attention.py` merges.
 
-The backward pass is two Pallas kernels (FlashAttention-2 recompute from the
-saved logsumexp): KV-stationary dk/dv with the GQA group-sum riding the
-innermost grid axis, and Q-stationary dq — see _bwd_pallas. A plain-JAX
-blockwise reference (_bwd_reference) remains as the executable spec.
+The backward is two kernels (FlashAttention-2 recompute from the saved
+logsumexp): KV-stationary dk/dv looping over the GQA group's q tiles, and
+Q-stationary dq looping over KV tiles. Programs run in no order on the
+card, so nothing is summed across programs.
 
-Both directions run their softmax in the log2 domain: the wrapper folds
-sm_scale * log2(e) into q, exp becomes exp2 (no range-reduction multiply per
-score element), and the emitted lse is converted back to natural log.
+On the GPU, `flash_attention` routes the calls cuDNN's fused attention
+covers (16-bit causal or full attention from position 0, optionally with a
+sliding window, no sinks, no logsumexp, no 8-bit cache) to that library
+kernel through `jax.nn.dot_product_attention`; see `select_impl`.
 """
 
 from __future__ import annotations
@@ -39,2869 +38,510 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from flashattention_kernel_project_tpu.ops.gemm import _precision
-from flashattention_kernel_project_tpu.ops.softmax import NEG_INF
-from flashattention_kernel_project_tpu.utils.platform import default_interpret
+from flashattention_kernel_project_tpu.utils.platform import resolve_interpret
 
-# Block-shape defaults (None = auto): swept on TPU v5e (docs/perf_journal.md).
-# stable=True -> (1024, 1024) for all head dims: the bigger q block halves
-# the per-q-block (m, l, acc) init/finish passes and KV revisits; measured
-# 109 vs 101 TF against (512, 1024) at 4K/d128 causal (3 fresh-process
-# rounds), and best at d<=64 too. bk=2048 and bq=256 are clearly worse.
-# stable=False, d > 64 -> (512, 1024): with the max bookkeeping gone the
-# kernel is no longer VPU-dominated and the smaller q block wins (139 vs
-# 124 TF in the same process; ordering reproduced across processes;
-# measured at d=128 — intermediate dims 64<d<128 are assumed to behave
-# like d=128, the nearer MXU-tile regime). At d<=64 the q block is half
-# the VMEM/MXU footprint and bq=1024 stays ahead under both disciplines
-# (65.0 vs 62.0 TF measured at 4K causal).
-DEFAULT_BLOCK_Q = None
-DEFAULT_BLOCK_K = None
-
-
-def _auto_blocks(block_q, block_k, d, stable=True, group=4):
-    # group: q-heads per kv-head. MHA (group=1) re-streams the full KV per
-    # q block, so the bigger q block's halved KV traffic wins even under
-    # the fixed-max discipline (122.6 TF at bq=1024 vs 116.2 at 512); GQA's
-    # KV blocks are revisited by `group` consecutive h steps (DMA elided),
-    # making the smaller q block's VPU/MXU balance the dominant term.
-    if block_q is None:
-        block_q = 512 if (not stable and d > 64 and group > 1) else 1024
-    if block_k is None:
-        block_k = 1024
-    return block_q, block_k
-
-
-_LANES = 128  # VPU lane width; m/l scratch is lane-broadcast for alignment
-# debug knob (benchmarks/probe_auto_gap.py): trace the hybrid kernel with the
-# bound predicate folded to True — isolates dual-instantiation cost from the
-# hybrid's _init/operand plumbing. Never set outside probes.
-_HYBRID_FORCE_FAST = False
-_LOG2E = 1.4426950408889634  # log2(e): fwd softmax runs in the log2 domain
+_LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
-# fixed-max safe band (log2-domain |score| bound): exp2 overflows f32
-# accumulation near 2^120 and loses bf16-normal accuracy below ~2^-100;
-# 78 leaves summation headroom. Shared by the hybrid kernel's per-block
-# predicate and the wrapper's whole-call dispatch.
-_SAFE_BOUND = 78.0
+# finite mask value: keeps exp2(m_old - m_new) well-defined for rows whose
+# visible keys have not been reached yet
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
+
+def _precision(dtype):
+    """f32 operands get full-precision products (no TF32); 16-bit and
+    dequantised 8-bit operands take the tensor cores' native path."""
+    return (
+        lax.Precision.HIGHEST
+        if jnp.dtype(dtype) == jnp.float32
+        else lax.Precision.DEFAULT
+    )
+
+
+def _dot(a, b, trans_a=False, trans_b=False):
+    return pl.dot(a, b, trans_a=trans_a, trans_b=trans_b,
+                  precision=_precision(a.dtype))
+
+
+def _pow2(n: int, lo: int = 16) -> int:
+    return max(lo, 1 << max(int(n) - 1, 0).bit_length())
+
+
+def default_blocks(n: int, s: int, d: int) -> tuple[int, int]:
+    """Tile sizes: 64 x 64, chosen on the card at d=128 (PERF.md), cut to
+    the padded lengths so tiny calls do not launch mostly-empty tiles."""
+    return min(64, _pow2(n)), min(64, _pow2(s))
+
+
+# 4 warps and 3 pipeline stages: the fastest measured forward at d=128;
+# 128-row tiles with 3 stages exceed a block's shared memory
+_COMPILER_PARAMS = plgpu.CompilerParams(num_warps=4, num_stages=3)
+
+
+# ---------------------------------------------------------------------------
+# Visibility: masks and the KV-tile range of a tile of rows
+# ---------------------------------------------------------------------------
+
+def _visible(rows, cols, kv_len, *, causal, window, sinks):
+    """[rows, cols] mask: key position `cols` is visible to query position
+    `rows` (positions already include the row's q offset)."""
+    mask = cols[None, :] < kv_len
+    if causal:
+        mask = mask & (cols[None, :] <= rows[:, None])
+    if window is not None:
+        band = cols[None, :] > rows[:, None] - window
+        if sinks:
+            band = band | (cols[None, :] < sinks)
+        mask = mask & band
+    return mask
+
+
+def _kv_ranges(p_lo, p_hi, kv_len, block_k, *, causal, window, sinks):
+    """KV tile ranges visible to row positions [p_lo, p_hi]: a sink range
+    [0, sink_hi) and a band range [band_lo, hi), disjoint."""
+    end = jnp.minimum(p_hi + 1, kv_len) if causal else kv_len
+    end = jnp.maximum(end, 0)
+    hi = lax.div(end + block_k - 1, block_k)
+    if window is None:
+        return 0, 0, 0, hi
+    band_lo = lax.div(jnp.maximum(p_lo - window + 1, 0), block_k)
+    if not sinks:
+        return 0, 0, band_lo, hi
+    sink_hi = jnp.minimum((sinks + block_k - 1) // block_k, hi)
+    return 0, sink_hi, jnp.maximum(band_lo, sink_hi), hi
+
+
+# ---------------------------------------------------------------------------
+# Forward kernel
+# ---------------------------------------------------------------------------
 
 def _fwd_kernel(
-    *refs,
-    n_kv: int,
-    causal: bool,
-    q_offset: int,
-    kv_len: int,
-    q_len: int,
-    block_q: int,
-    block_k: int,
-    num_sub: int,
-    pipeline_subs: bool,
-    stable: bool,
-    quant: bool = False,
-    window: int | None = None,
-    sinks: int = 0,
-    diag_subs: int = 1,
-    g_stack: int = 1,
-    guard: bool = False,
-    n_kv_grid: int | None = None,
-    hybrid: bool = False,
+    len_ref, off_ref, q_ref, k_ref, v_ref, *refs,
+    quant, causal, window, sinks, scale, block_q, block_k,
 ):
-    # quant=True adds per-token dequant scale refs for an 8-bit KV cache
-    # (int8 / fp8_e4m3): dequant is fused at the K/V load stage — the slot
-    # where the reference does cp.async (SURVEY Phase 4). K's scale lands on
-    # the f32 score tile AFTER the matmul; V's scale folds into the exp
-    # weights — both keep the MXU matmuls unscaled (same discipline as
-    # flash_decode's _decode_kernel_int8).
-    if hybrid:
-        # per-q-block Cauchy-Schwarz score bound max||q_r||*max||k_t||,
-        # PRECOMPUTED on the XLA side ([b, heads, n_q] SMEM, one scalar per
-        # program): an in-kernel [rows, d] row-norm reduce was measured at
-        # ~0.53 us per q block (cross-lane sum over d) — 17 of the r3 auto
-        # design's 18 us gap vs fast at 4K (benchmarks/probe_auto_gap.py);
-        # XLA computes the same norms in one fused O(N*D) pass for ~1 us.
-        bound_ref, *refs = refs
-    # narrow sink-step operands (see sink_special below): [sink_w]-wide
-    # slices of KV block 0 with a CONSTANT index map, so they ride one
-    # elided DMA instead of re-fetching the full 512 KB block per q block
-    sink_w = min(block_k, -(-max(sinks, 1) // _LANES) * _LANES)
-    sink_special = (
-        n_kv_grid is not None and sinks > 0 and sink_w < block_k
-        and stable is False and not hybrid
-    )
     if quant:
-        q_ref, k_ref, ks_ref, v_ref, vs_ref, *rest = refs
-        if sink_special:
-            ksink_ref, kssink_ref, vsink_ref, vssink_ref, *rest = rest
+        ks_ref, vs_ref, o_ref, lse_ref = refs
     else:
-        q_ref, k_ref, v_ref, *rest = refs
-        ks_ref = vs_ref = None
-        if sink_special:
-            ksink_ref, vsink_ref, *rest = rest
-            kssink_ref = vssink_ref = None
-    if guard:
-        o_ref, lse_ref, flag_ref, m_scr, l_scr, acc_scr = rest
-    else:
-        o_ref, lse_ref, m_scr, l_scr, acc_scr = rest
-        flag_ref = None
-    q_idx = pl.program_id(2)
-    j_raw = pl.program_id(3)
-    if n_kv_grid is None:
-        n_kv_grid = n_kv
-        kv_idx = j_raw
-        step_live = True
-    else:
-        # WINDOWED GRID (VERDICT r3 task 7): the KV grid dimension covers
-        # only this q block's live band — sink step 0 (when sinks > 0)
-        # plus the window's blocks — so sliding-window cost is O(N*W)
-        # in PROGRAMS, not just in predicated-off compute. At 32K/W=4K
-        # the full grid ran 64 kv steps per q block with ~54 dead; dead
-        # programs still cost their ~0.3 us fixed dispatch each.
-        last = jnp.clip(
-            (q_idx * block_q + q_offset + block_q - 1) // block_k,
-            0, n_kv - 1,
-        )
-        first = jnp.maximum(
-            (q_idx * block_q + q_offset - (window - 1)) // block_k, 0
-        )
-        first = jnp.minimum(first, last)
-        first_blk = first  # captured by the narrow sink-step dispatch
-        if sinks and not sink_special:
-            # reserved sink step at j == 0 (stable/hybrid disciplines, or
-            # sinks spanning the whole block)
-            kv_idx = jnp.where(
-                j_raw == 0, 0, jnp.minimum(first + j_raw - 1, last)
-            )
-            # j >= 1 must map to a NEW block (no clamp duplicate of `last`,
-            # and block 0 is already covered by the sink step)
-            step_live = jnp.logical_or(
-                j_raw == 0,
-                jnp.logical_and(
-                    first + j_raw - 1 <= last, first + j_raw - 1 >= 1
-                ),
-            )
-        else:
-            # sink_special: NO reserved step — the narrow sink compute
-            # rides the first band step (its columns are disjoint from the
-            # band when first >= 1, and inside block 0's masked cell when
-            # first == 0), so sinks cost zero extra grid programs
-            kv_idx = jnp.minimum(first + j_raw, last)
-            step_live = first + j_raw <= last
-    # g_stack > 1: the GQA group's q-heads are STACKED into the q tile
-    # ([G, block_q, d] block -> [G*block_q, d] rows) so one program feeds
-    # the MXU group-times the work against ONE K/V stream — the measured
-    # per-program amortization lever (qk probe: 0.73 -> 0.82 roofline going
-    # 512 -> 1024 q rows) plus a group-fold drop in KV HBM traffic. All
-    # heads share q positions, so causal/tail masks use row % block_q.
-    rows = g_stack * block_q
+        o_ref, lse_ref = refs
+    i = pl.program_id(0)
+    kv_len = len_ref[0]
+    rows = i * block_q + lax.broadcasted_iota(jnp.int32, (block_q,), 0)
+    rows = rows + off_ref[0]
+    q = q_ref[...]
+    d_v = o_ref.shape[-1]
 
-    def _q_tile():
-        qv = q_ref[0, 0]
-        return qv.reshape(rows, qv.shape[-1]) if g_stack > 1 else qv
-
-    def _row_iota(n_cols):
-        it = jax.lax.broadcasted_iota(jnp.int32, (rows, n_cols), 0)
-        return jax.lax.rem(it, block_q) if g_stack > 1 else it
-    # NOTE: bf16 score tiles were tried and are impossible — Mosaic requires
-    # 32-bit matmul accumulators ("Expected matmul acc to be 32-bit").
-    # scores arrive in the log2 domain (wrapper folds sm_scale * log2(e) into
-    # q): exp(s_nat - m_nat) == exp2(s - m), skipping exp's internal
-    # x*log2e range-reduction multiply on every score element.
-    exp_ = jnp.exp2
-
-    if hybrid:
-        # safe band: exp2 overflows f32 accumulation near 2^120 and loses
-        # bf16-normal accuracy below ~2^-100; 78 leaves summation headroom.
-        # NaN-safe: a NaN bound compares False -> the online branch runs.
-        pred_fast = (
-            True if _HYBRID_FORCE_FAST
-            else bound_ref[pl.program_id(0), pl.program_id(1), q_idx]
-            < _SAFE_BOUND
-        )
-    else:
-        pred_fast = None
-
-    @pl.when(j_raw == 0)
-    def _init():
-        # The fixed-max discipline's m is 0 for its whole life and is NEVER
-        # stored: the fast path doesn't write m_scr and the finish epilogue
-        # substitutes the constant 0 (hybrid: jnp.where on the bound
-        # predicate). Skipping the [rows, LANES] fill saves ~0.27 us per
-        # q block — ~8 us of the 4K call (benchmarks/probe_auto_gap.py
-        # round 4); only online-rescale blocks pay the -inf init.
-        # (A j==0 STORE-semantics instantiation eliding the l/acc fills
-        # and first-step load+add was also A/B'd: exactly zero effect —
-        # those scratch passes hide under the pipeline — so it was
-        # dropped for simplicity.)
-        if hybrid:
-            @pl.when(jnp.logical_not(pred_fast))
-            def _():
-                m_scr[:] = jnp.full_like(m_scr, NEG_INF)
-        elif stable:
-            m_scr[:] = jnp.full_like(m_scr, NEG_INF)
-        l_scr[:] = jnp.zeros_like(l_scr)
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    # Causal skip: KV block strictly above the diagonal touches nothing;
-    # with a sliding window, blocks entirely below every row's window start
-    # are equally dead (the block-level skip is where SWA's O(N*W) cost
-    # comes from — interior programs never run).
-    if causal:
-        diag_ok = kv_idx * block_k <= q_idx * block_q + q_offset + (block_q - 1)
-        if window is not None:
-            in_band = (
-                kv_idx * block_k + (block_k - 1)
-                >= q_idx * block_q + q_offset - (window - 1)
-            )
-            if sinks:
-                # attention-sink blocks (first `sinks` keys) stay live
-                # below the window band (StreamingLLM-style)
-                in_band = jnp.logical_or(in_band, kv_idx * block_k < sinks)
-            diag_ok = jnp.logical_and(diag_ok, in_band)
-        if step_live is not True:
-            diag_ok = jnp.logical_and(diag_ok, step_live)
-    else:
-        diag_ok = True
-
-    sub = block_k // num_sub
-    need_tail = kv_len % block_k != 0
-    # Masked entries rely on exp(NEG_INF - m) flushing to exactly 0, which
-    # needs a finite running max m for every row. KV blocks run in ascending
-    # order and block 0 holds key 0, visible to every query row iff
-    # q_offset >= 0 and no window truncates history — otherwise fall back
-    # to explicit post-exp zeroing (a row's first LIVE block can be fully
-    # masked for that row while m is still -inf).
-    zero_after_exp = causal and (q_offset < 0 or window is not None)
-
-    def _compute(masked: bool, use_stable: bool = stable):
-        # sm_scale is pre-folded into q by the wrapper: one fewer VPU pass
-        # over the [block_q, block_k] score tile (the VPU passes over that
-        # tile are the kernel's measured bottleneck — docs/perf_journal.md).
-        q = _q_tile()  # [rows, d]
-        k = k_ref[0, 0]  # [block_k, d]
-        v = v_ref[0, 0]  # [block_k, d_v]
-        if quant:
-            # 8-bit -> compute-dtype cast in VMEM; the HBM stream stays 8-bit
-            k = k.astype(q.dtype)
-            v = v.astype(q.dtype)
-            ks = ks_ref[0, 0]  # [1, block_k] f32 per-token K scale
-            # V's per-token scale multiplies the exp weights (compute dtype,
-            # packed 2x on the VPU for bf16)
-            vs = vs_ref[0, 0].astype(v.dtype)  # [1, block_k]
-
-        # Issue ALL QK^T sub-dots before any VPU work: the MXU runs ahead of
-        # the softmax chain, and PV(i) overlaps softmax(i+1) — the TPU
-        # version of the reference's load(t)/compute(t-1) software pipeline
-        # (flashattn_forward_wmma_v5_cp_async.cu:221-251), but across the
-        # MXU/VPU boundary instead of the memory/compute one.
-        s_parts = [
-            jax.lax.dot_general(
-                q,
-                k[i * sub : (i + 1) * sub],
-                (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=_precision(q.dtype),
-            )
-            for i in range(num_sub)
-        ]
-        if quant:
-            # per-token K dequant scale on the f32 score tile (q already
-            # carries sm_scale * log2e, so the product is the log2-domain
-            # score of the dequantized keys)
-            s_parts = [
-                s_i * ks[:, i * sub : (i + 1) * sub]
-                for i, s_i in enumerate(s_parts)
-            ]
-
-        # Tail mask (padded keys) and causal mask, both as iota compares.
-        # Only the `masked` instantiation pays these VPU passes; interior
-        # causal blocks (fully below the diagonal) and non-tail blocks run
-        # the unmasked instantiation.
-        masks = [None] * num_sub
-        if masked:
-            row = None
-            if causal:
-                row = q_idx * block_q + q_offset + _row_iota(sub)
-            for i in range(num_sub):
-                col = kv_idx * block_k + i * sub + jax.lax.broadcasted_iota(
-                    jnp.int32, (rows, sub), 1
-                )
-                mask = col < kv_len if need_tail else None
-                if causal:
-                    cm = col <= row
-                    if window is not None:
-                        wm = col > row - window
-                        if sinks:
-                            wm = jnp.logical_or(wm, col < sinks)
-                        cm = jnp.logical_and(cm, wm)
-                    mask = cm if mask is None else jnp.logical_and(mask, cm)
-                s_parts[i] = jnp.where(mask, s_parts[i], NEG_INF)
-                if zero_after_exp and use_stable:
-                    # only the online path needs the post-exp zeroing (its
-                    # m carry can be NEG_INF -> exp(0) = 1 on dead rows);
-                    # fixed-max exp2(NEG_INF) is already exact 0
-                    masks[i] = mask
-
-        def _pv_w(p, i):
-            # fused V dequant: exp weights scaled by the per-token V scale
-            # right before the PV matmul (l sums the UNSCALED p — the
-            # denominator belongs to the dequantized scores already)
-            return p * vs[:, i * sub : (i + 1) * sub] if quant else p
-
-        # exp computed at the PV matmul's input precision: for bf16 inputs
-        # this packs 2x on the VPU and skips the separate f32->bf16 convert
-        # pass before the MXU. max-subtraction keeps the argument in
-        # [-inf, 0], where bf16 exp has ~3 decimal digits — inside the 1e-2
-        # numerics gate (verified vs oracle in tests and on-chip).
-        if not use_stable:
-            # fixed-max discipline (FlashDecoding++-style): skip the max
-            # reduce AND the carry rescale entirely — p = exp2(s) directly,
-            # sound while s stays within exp2's bf16 range (|s_nat| < ~80;
-            # see flash_attention's `stable` docstring). Masked lanes are
-            # NEG_INF -> exp2 flushes to exact 0, so no post-exp zeroing is
-            # needed on any instantiation; m stays 0 from _init.
-            l_c = l_scr[:]
-            acc = acc_scr[:]
-            for i, s_i in enumerate(s_parts):
-                p = exp_(s_i.astype(v.dtype))
-                l_c = l_c + jnp.sum(
-                    p, axis=-1, keepdims=True, dtype=jnp.float32
-                )
-                acc = acc + jax.lax.dot_general(
-                    _pv_w(p, i),
-                    v[i * sub : (i + 1) * sub],
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=_precision(v.dtype),
-                )
-            l_scr[:] = l_c
-            acc_scr[:] = acc
-            return
-        acc = acc_scr[:]
-        if pipeline_subs:
-            # Sequential online-softmax sub-steps: exp(p_i) only needs
-            # max(s_i), so the VPU starts as soon as s_0 lands while the MXU
-            # computes s_1..; PV(i) then overlaps softmax(i+1).
-            m_c = m_scr[:]  # [block_q, LANES] lane-broadcast
-            l_c = l_scr[:]
-            for i, s_i in enumerate(s_parts):
-                m_t = jnp.max(s_i, axis=-1, keepdims=True)  # [block_q, 1]
-                m_n = jnp.maximum(m_c, m_t.astype(jnp.float32))
-                sc = exp_(m_c - m_n)
-                # subtract at the score dtype (bf16 scores stay packed 2x)
-                p = exp_(
-                    (s_i - m_n[:, :1].astype(s_i.dtype)).astype(v.dtype)
-                )
-                if masks[i] is not None:
-                    p = jnp.where(masks[i], p, jnp.zeros_like(p))
-                l_c = l_c * sc + jnp.sum(
-                    p, axis=-1, keepdims=True, dtype=jnp.float32
-                )
-                pv = jax.lax.dot_general(
-                    _pv_w(p, i),
-                    v[i * sub : (i + 1) * sub],
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=_precision(v.dtype),
-                )
-                acc = acc * sc[:, :1] + pv
-                m_c = m_n
-            m_scr[:] = m_c
-            l_scr[:] = l_c
-        else:
-            m_prev = m_scr[:]  # [block_q, LANES] lane-broadcast
-            l_prev = l_scr[:]
-            m_tile = s_parts[0].max(axis=-1, keepdims=True)
-            for s_i in s_parts[1:]:
-                m_tile = jnp.maximum(m_tile, s_i.max(axis=-1, keepdims=True))
-            m_next = jnp.maximum(m_prev, m_tile.astype(jnp.float32))
-            scale_old = exp_(m_prev - m_next)
-            l_next = l_prev * scale_old
-            pv_sum = None
-            for i, s_i in enumerate(s_parts):
-                p = exp_(
-                    (s_i - m_next[:, :1].astype(s_i.dtype)).astype(v.dtype)
-                )
-                if masks[i] is not None:
-                    p = jnp.where(masks[i], p, jnp.zeros_like(p))
-                l_next = l_next + jnp.sum(
-                    p, axis=-1, keepdims=True, dtype=jnp.float32
-                )
-                pv = jax.lax.dot_general(
-                    _pv_w(p, i),
-                    v[i * sub : (i + 1) * sub],
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=_precision(v.dtype),
-                )
-                pv_sum = pv if pv_sum is None else pv_sum + pv
-            m_scr[:] = m_next
-            l_scr[:] = l_next
-            acc = acc * scale_old[:, :1] + pv_sum
-        acc_scr[:] = acc
-
-    def _compute_masked_fast():
-        # Fixed-max discipline on DIAGONAL/TAIL blocks: the (l, acc) carry
-        # is purely additive (no running-max rescale), so the KV block
-        # splits into `diag_subs` predicated sub-tiles and fully-masked
-        # subs are skipped outright. With one whole-block instantiation,
-        # ~75% of the diagonal block's MXU work is dead at block_k = 2 *
-        # block_q — the dominant term in the measured causal-vs-non-causal
-        # roofline gap (0.61 vs 0.82 at 4K/d128). The reference never hit
-        # this: its 16-wide KV tiles make diagonal waste negligible
-        # (flashattn_streaming_16x16.cu); 1024-wide TPU blocks do not.
-        q = _q_tile()
-        k = k_ref[0, 0]
-        v = v_ref[0, 0]
+    def body(j, carry):
+        acc, m, l = carry
+        sl = pl.ds(j * block_k, block_k)
+        k = k_ref[sl, :]
         if quant:
             k = k.astype(q.dtype)
-            v = v.astype(q.dtype)
-            ks = ks_ref[0, 0]
-            vs = vs_ref[0, 0].astype(v.dtype)
-        dsub = block_k // diag_subs
-        row_first = q_idx * block_q + q_offset
-        row_last = row_first + (block_q - 1)
-        row = (row_first + _row_iota(dsub)) if causal else None
-        for i in range(diag_subs):
-            start = i * dsub
-            first_col = kv_idx * block_k + start
-            live = None
-            if causal:
-                live = jnp.asarray(first_col <= row_last)
-                if window is not None:
-                    # fully below every row's window start — dead unless it
-                    # holds sink columns
-                    dead_below = jnp.asarray(
-                        first_col + (dsub - 1) < row_first - (window - 1)
-                    )
-                    if sinks:
-                        dead_below = jnp.logical_and(
-                            dead_below, first_col >= sinks
-                        )
-                    live = jnp.logical_and(
-                        live, jnp.logical_not(dead_below)
-                    )
-            if need_tail:
-                tail_live = jnp.asarray(first_col < kv_len)
-                live = (
-                    tail_live if live is None
-                    else jnp.logical_and(live, tail_live)
-                )
-
-            def _sub(start=start, first_col=first_col):
-                s_i = jax.lax.dot_general(
-                    q, k[start : start + dsub], (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=_precision(q.dtype),
-                )
-                if quant:
-                    s_i = s_i * ks[:, start : start + dsub]
-                col = first_col + jax.lax.broadcasted_iota(
-                    jnp.int32, (rows, dsub), 1
-                )
-                mask = col < kv_len if need_tail else None
-                if causal:
-                    cm = col <= row
-                    if window is not None:
-                        wm = col > row - window
-                        if sinks:
-                            wm = jnp.logical_or(wm, col < sinks)
-                        cm = jnp.logical_and(cm, wm)
-                    mask = cm if mask is None else jnp.logical_and(mask, cm)
-                s_m = jnp.where(mask, s_i, NEG_INF)
-                p = exp_(s_m.astype(v.dtype))
-                l_scr[:] = l_scr[:] + jnp.sum(
-                    p, axis=-1, keepdims=True, dtype=jnp.float32
-                )
-                pw = p * vs[:, start : start + dsub] if quant else p
-                acc_scr[:] = acc_scr[:] + jax.lax.dot_general(
-                    pw, v[start : start + dsub], (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=_precision(v.dtype),
-                )
-
-            pl.when(live)(_sub) if live is not None else _sub()
-
-    # Narrow sink step (VERDICT r4 task 9): on the windowed grid, the sink
-    # step's live columns are just [0, sinks) of KV block 0 — when the
-    # window band doesn't reach block 0 (first live block >= 1), compute
-    # only the dedicated round_up(sinks, 128)-wide resident operands
-    # instead of a full diag_sub span of the full block (sinks=64 under a
-    # 512-wide sub was 87% dead MXU work AND a 512 KB block-0 re-fetch per
-    # q block — the r3 sinks rung read 0.642x vs the plain window's
-    # 0.713x). sink_w / sink_special are defined at the top (ref unpack).
-    def _compute_sink():
-        q = _q_tile()
-        k = ksink_ref[0, 0]  # [sink_w, d], resident (constant index map)
-        v = vsink_ref[0, 0]
+        s = _dot(q, k, trans_b=True)
         if quant:
-            k = k.astype(q.dtype)
-            v = v.astype(q.dtype)
-        s_i = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(q.dtype),
-        )
+            s = s * ks_ref[sl][None, :]
+        s = s * scale
+        cols = j * block_k + lax.broadcasted_iota(jnp.int32, (block_k,), 0)
+        mask = _visible(rows, cols, kv_len, causal=causal, window=window,
+                        sinks=sinks)
+        s = jnp.where(mask, s, MASK_VALUE)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        alpha = jnp.exp2(m - m_new)
+        p = jnp.exp2(s - m_new[:, None])
+        l = l * alpha + jnp.sum(p, axis=1)
+        v = v_ref[sl, :]
         if quant:
-            s_i = s_i * kssink_ref[0, 0]
-        if sink_w != sinks:
-            # only the first `sinks` of the padded-to-lane-width columns
-            # are live; rows here are >= window > sinks so no causal mask
-            col = jax.lax.broadcasted_iota(jnp.int32, (rows, sink_w), 1)
-            s_i = jnp.where(col < sinks, s_i, NEG_INF)
-        p = exp_(s_i.astype(v.dtype))
-        l_scr[:] = l_scr[:] + jnp.sum(
-            p, axis=-1, keepdims=True, dtype=jnp.float32
-        )
-        pw = p * vssink_ref[0, 0].astype(v.dtype) if quant else p
-        acc_scr[:] = acc_scr[:] + jax.lax.dot_general(
-            pw, v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(v.dtype),
-        )
+            p = p * vs_ref[sl][None, :]
+            v = v.astype(q.dtype)
+        acc = acc * alpha[:, None] + _dot(p.astype(v.dtype), v)
+        return acc, m_new, l
 
-    # fixed-max masked blocks go through the sub-predicated path; the online
-    # (stable) discipline keeps the whole-block instantiation (its carry
-    # rescale is order-sensitive across subs). Hybrid emits BOTH
-    # disciplines' instantiations, predicated FLAT on cond & bound (nested
-    # pl.when regions each pay a fixed entry cost — measured ~0.15 us per
-    # program).
-    fast_masked_fn = (
-        _compute_masked_fast
-        if diag_subs > 1
-        else (lambda: _compute(True, False))
+    p_lo = i * block_q + off_ref[0]
+    lo0, hi0, lo1, hi1 = _kv_ranges(
+        p_lo, p_lo + block_q - 1, kv_len, block_k, causal=causal, window=window,
+        sinks=sinks,
     )
-
-    def _run(cond, masked, use_stable=stable):
-        # dispatch one (liveness-cond, mask-mode) cell for one discipline
-        if use_stable:
-            fn = lambda m=masked: _compute(m, True)  # noqa: E731
-        elif masked:
-            fn = (
-                fast_masked_fn
-                if diag_subs > 1
-                else (lambda: _compute(True, False))
-            )
-        else:
-            fn = lambda: _compute(False, False)  # noqa: E731
-        pl.when(cond)(fn) if cond is not None else fn()
-
-    def _dispatch(run_cells):
-        # hybrid: ONE two-branch cond per PROGRAM on the bound predicate
-        # (pred is constant across this program's cells), each branch
-        # holding that discipline's liveness/mask cells — region entry has
-        # a fixed per-program cost (~0.15 us) and both the r3 flat
-        # pl.when-per-(cell, discipline) form and a cond-per-cell form
-        # doubled it (the auto gap decomposed as ~100% in-kernel:
-        # benchmarks/probe_auto_gap.py).
-        if not hybrid:
-            run_cells(stable)
-        elif pred_fast is True:  # probe knob: plumbing-only hybrid
-            run_cells(False)
-        else:
-            jax.lax.cond(
-                pred_fast,
-                lambda: run_cells(False),
-                lambda: run_cells(True),
-            )
-
-    # Statement-level predication (pl.when), NOT lax.cond: a value-level cond
-    # forces the [block_q, block_k] f32 score tile through branch yields,
-    # which Mosaic materializes — measured 22% slower than no branch at all.
-    if causal:
-        crosses_diag = (
-            kv_idx * block_k + (block_k - 1) > q_idx * block_q + q_offset
-        )
-        is_tail = (kv_idx == n_kv - 1) if need_tail else False
-        needs_mask = jnp.logical_or(crosses_diag, jnp.asarray(is_tail))
-        if window is not None:
-            # block starts below the highest row's window start -> some
-            # (row, col) pairs fall outside the window
-            crosses_win = (
-                kv_idx * block_k
-                < q_idx * block_q + q_offset + (block_q - 1) - (window - 1)
-            )
-            needs_mask = jnp.logical_or(needs_mask, crosses_win)
-
-        def _cells(use_stable):
-            masked_cond = jnp.logical_and(diag_ok, needs_mask)
-            unmasked_cond = jnp.logical_and(
-                diag_ok, jnp.logical_not(needs_mask)
-            )
-            if sink_special:
-                # ADDITIVE narrow sink compute on the first band step
-                # (disjoint columns; fixed-max carry is purely additive);
-                # early q blocks (first == 0) have the sink columns inside
-                # block 0's masked cell already
-                narrow = jnp.logical_and(j_raw == 0, first_blk >= 1)
-                pl.when(narrow)(_compute_sink)
-            _run(masked_cond, True, use_stable)
-            _run(unmasked_cond, False, use_stable)
-    elif need_tail:
-        is_tail = kv_idx == n_kv - 1
-
-        def _cells(use_stable):
-            _run(is_tail, True, use_stable)
-            _run(jnp.logical_not(is_tail), False, use_stable)
-    else:
-        def _cells(use_stable):
-            _run(None, False, use_stable)
-
-    _dispatch(_cells)
-
-    @pl.when(j_raw == n_kv_grid - 1)
-    def _finish():
-        l = l_scr[:, :1]
-        safe_l = jnp.where(l == 0.0, 1.0, l)
-        o_val = (acc_scr[:] / safe_l).astype(o_ref.dtype)
-        # logsumexp residual for the backward pass / merges; the running max
-        # lives in the log2 domain, so convert back to natural log.
-        # Fixed-max blocks never stored m (see _init) — their m is the
-        # constant 0; jnp.where discards the stale m_scr read (even NaN).
-        if hybrid:
-            m_val = jnp.where(pred_fast, 0.0, m_scr[:, :1])
-        elif stable:
-            m_val = m_scr[:, :1]
-        else:
-            m_val = 0.0
-        lse = m_val * _LN2 + jnp.log(safe_l)
-        lse_val = jnp.where(l == 0.0, NEG_INF, lse)
-        if guard:
-            # Fixed-max range guard (VERDICT r3 task 1b): with m pinned at 0
-            # the l carry is a direct range witness — l in [2^-100, 2^120]
-            # certifies every row's p = exp2(s) stayed in bf16's NORMAL
-            # range (p_max >= l / block_k >= 2^-110) with no overflow
-            # margin breach, i.e. the fixed-max output is as accurate as
-            # the online-rescale one. Outside that band (or any non-finite
-            # acc) the wrapper's lax.cond reruns the stable kernel, making
-            # stable="auto" unconditionally correct with one tiny VPU
-            # reduction per q block as the only fast-path cost.
-            pos = _row_iota(1)[:, :1] + q_idx * block_q  # [rows, 1] q pos
-            real = pos < q_len  # g_stack tail rows past q_len are padding
-            if causal:
-                # rows with no visible key (negative horizon) legitimately
-                # carry l == 0 — not an underflow
-                real = jnp.logical_and(real, pos + q_offset >= 0)
-            bad = jnp.logical_or(
-                jnp.logical_not(jnp.isfinite(l)),
-                jnp.logical_or(l > 2.0 ** 120, l < 2.0 ** -100),
-            )
-            bad = jnp.logical_or(
-                bad,
-                jnp.logical_not(
-                    jnp.isfinite(acc_scr[:].astype(jnp.float32))
-                ).any(axis=-1, keepdims=True),
-            )
-            cnt = jnp.sum(
-                jnp.logical_and(bad, real).astype(jnp.float32)
-            )
-            flag_ref[0, 0] = jnp.full((8, _LANES), cnt, jnp.float32)
-        if g_stack > 1:
-            o_ref[0, 0] = o_val.reshape(g_stack, block_q, o_val.shape[-1])
-            lse_ref[0, 0] = lse_val.reshape(g_stack, block_q, 1)
-        else:
-            o_ref[0, 0] = o_val
-            lse_ref[0, 0] = lse_val
+    carry = (
+        jnp.zeros((block_q, d_v), jnp.float32),
+        jnp.full((block_q,), MASK_VALUE, jnp.float32),
+        jnp.zeros((block_q,), jnp.float32),
+    )
+    if sinks and window is not None:
+        carry = lax.fori_loop(lo0, hi0, body, carry)
+    acc, m, l = lax.fori_loop(lo1, hi1, body, carry)
+    empty = l == 0.0  # rows that see no key: output 0, lse -1e30
+    o_ref[...] = (acc / jnp.where(empty, 1.0, l)[:, None]).astype(o_ref.dtype)
+    lse_ref[...] = jnp.where(empty, -1e30, (m + jnp.log2(l)) * _LN2)
 
 
-def _fwd_kernel_packed(
-    *refs,
-    n_kv: int,
-    causal: bool,
-    q_offset: int,
-    kv_len: int,
-    q_len: int,
-    block_q: int,
-    block_k: int,
-    d: int,
-    window: int | None,
-    sinks: int,
-    diag_subs: int,
-    g_stack: int,
-    guard: bool,
-):
-    """Fixed-max forward with KV-HEAD PAIRING for d <= 64 (VERDICT r3
-    task 3). At d = 64 the plain kernel's dots half-fill the MXU: QK^T
-    contracts over 64 of the 128-deep systolic array and PV writes 64 of
-    128 output lanes. This kernel fuses TWO KV heads (A, B) per program:
+def _pad_axis(x, axis, to):
+    pad = to - x.shape[axis]
+    if pad == 0:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return jnp.pad(x, widths)
 
-      q rows carry both heads' queries side by side  [rows, 128] =
-        [q_A | q_B];
-      K expands BLOCK-DIAGONALLY  [[k_A, 0], [0, k_B]]  ->  [2*bk, 128],
-        so dot(q_pack, k_pack^T) = [q_A k_A^T | q_B k_B^T] — per-head
-        scores packed along the column axis, contraction depth 128;
-      V expands the same way, so dot(p, v_pack) = [p_A v_A | p_B v_B] —
-        both heads' outputs packed along the full 128 output lanes.
 
-    Every MXU MAC is useful: the zero quadrants contribute exactly the
-    cross-head terms the math must NOT have. The VPU softmax runs on the
-    [rows, 2*bk] tile with per-half l sums; causal/tail/window masks are
-    column masks, identical for both halves (same key positions). The
-    reference's d=64 flagship configs (qk_tiled_5_1_1.cu:128-131,
-    flashattn_forward_fused_5_4_2.cu:275-277) never faced this: 16-wide
-    WMMA fragments match d=64 natively; 128-wide MXU tiles do not.
-    Fixed-max only — the online rescale would need a per-half m carry.
-    """
-    if guard:
-        q_ref, k_ref, v_ref, o_ref, lse_ref, flag_ref, acc_scr = refs
-    else:
-        q_ref, k_ref, v_ref, o_ref, lse_ref, acc_scr = refs
-        flag_ref = None
-    q_idx = pl.program_id(2)
-    kv_idx = pl.program_id(3)
-    rows = g_stack * block_q
+def _round_up(n, m):
+    return -(-n // m) * m
 
-    @pl.when(kv_idx == 0)
-    def _init():
-        acc_scr[:] = jnp.zeros_like(acc_scr)
 
-    if causal:
-        diag_ok = kv_idx * block_k <= q_idx * block_q + q_offset + (block_q - 1)
-        if window is not None:
-            in_band = (
-                kv_idx * block_k + (block_k - 1)
-                >= q_idx * block_q + q_offset - (window - 1)
-            )
-            if sinks:
-                in_band = jnp.logical_or(in_band, kv_idx * block_k < sinks)
-            diag_ok = jnp.logical_and(diag_ok, in_band)
-    else:
-        diag_ok = True
-    need_tail = kv_len % block_k != 0
-
-    def _q_tile():
-        qv = q_ref[0, 0]  # [g_stack, block_q, 2d]
-        return qv.reshape(rows, 2 * d)
-
-    def _row_iota(n_cols):
-        it = jax.lax.broadcasted_iota(jnp.int32, (rows, n_cols), 0)
-        return jax.lax.rem(it, block_q) if g_stack > 1 else it
-
-    # K/V arrive PRE-PACKED by the wrapper (round 5): per KV tile, rows
-    # [0:bk] = [k_A | 0] and [bk:2bk] = [0 | k_B] (V: [v | ones] both
-    # halves). The r1-r4 kernel built this block-diagonal tile in-VPU per
-    # (q, kv) visit — zeros + two concats over [2bk, 2d] elements, pure
-    # VPU work the packed-envelope probe (0.380x) deliberately excluded.
-    # Prepacking trades that for 2x K/V HBM bytes (~1% of the call) and
-    # one XLA construction pass per call.
-
-    def _mask_scores(s, start, dsub):
-        # s: [rows, 2*dsub] log2-domain scores, halves = heads A | B over
-        # the same key positions [start, start+dsub)
-        col = kv_idx * block_k + start + jax.lax.rem(
-            jax.lax.broadcasted_iota(jnp.int32, (rows, 2 * dsub), 1),
-            dsub,
-        )
-        mask = col < kv_len if need_tail else None
-        if causal:
-            row = q_idx * block_q + q_offset + _row_iota(2 * dsub)
-            cm = col <= row
-            if window is not None:
-                wm = col > row - window
-                if sinks:
-                    wm = jnp.logical_or(wm, col < sinks)
-                cm = jnp.logical_and(cm, wm)
-            mask = cm if mask is None else jnp.logical_and(mask, cm)
-        return jnp.where(mask, s, NEG_INF)
-
-    def _pv(p, dsub, start):
-        # PV with MXU-computed row sums: the prepacked V rows carry
-        # [v | ones], so lanes [d, 2d) of each head's accumulator receive
-        # sum(p) — the softmax denominator — from the SAME matmul that
-        # computes P·V (the ones lanes ride the lane padding d=64 pays
-        # anyway; deletes the per-block VPU sum pass). A-half rows live at
-        # [start, start+dsub), B-half at [block_k+start, ...): contiguous
-        # slices, no concat.
-        for half_p, vbase, off in (
-            (p[:, :dsub], start, 0),
-            (p[:, dsub:], block_k + start, 2 * d),
-        ):
-            v_aug = v_ref[0, 0, vbase : vbase + dsub]
-            acc_scr[:, off : off + 2 * d] = acc_scr[
-                :, off : off + 2 * d
-            ] + jax.lax.dot_general(
-                half_p, v_aug, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=_precision(v_aug.dtype),
-            )
-
-    def _compute(masked: bool):
-        q = _q_tile()
-        s = jax.lax.dot_general(
-            q, k_ref[0, 0], (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(q.dtype),
-        )  # [rows, 2*bk]: columns = [A tokens | B tokens]
-        if masked:
-            s = _mask_scores(s, 0, block_k)
-        p = jnp.exp2(s.astype(o_ref.dtype))
-        _pv(p, block_k, 0)
-
-    def _compute_masked_subs():
-        # sub-predicated masked path (diagonal/tail/window-edge blocks):
-        # fully-dead key sub-ranges skip their dot outright (same move as
-        # _compute_masked_fast in the unpacked kernel)
-        q = _q_tile()
-        dsub = block_k // diag_subs
-        row_first = q_idx * block_q + q_offset
-        row_last = row_first + (block_q - 1)
-        for i in range(diag_subs):
-            start = i * dsub
-            first_col = kv_idx * block_k + start
-            live = None
-            if causal:
-                live = jnp.asarray(first_col <= row_last)
-                if window is not None:
-                    dead_below = jnp.asarray(
-                        first_col + (dsub - 1) < row_first - (window - 1)
-                    )
-                    if sinks:
-                        dead_below = jnp.logical_and(
-                            dead_below, first_col >= sinks
-                        )
-                    live = jnp.logical_and(live, jnp.logical_not(dead_below))
-            if need_tail:
-                tail_live = jnp.asarray(first_col < kv_len)
-                live = (
-                    tail_live if live is None
-                    else jnp.logical_and(live, tail_live)
-                )
-
-            def _sub(start=start):
-                # per-half dots on contiguous prepacked row slices: the
-                # halves share key positions, so ONE [rows, dsub] mask
-                # serves both, and the half's zero lanes make dot(q, kA)
-                # the pure A scores (qB x 0) — no sub-tile pack at all
-                col = kv_idx * block_k + start + jax.lax.broadcasted_iota(
-                    jnp.int32, (rows, dsub), 1
-                )
-                mask = col < kv_len if need_tail else None
-                if causal:
-                    row = q_idx * block_q + q_offset + _row_iota(dsub)
-                    cm = col <= row
-                    if window is not None:
-                        wm = col > row - window
-                        if sinks:
-                            wm = jnp.logical_or(wm, col < sinks)
-                        cm = jnp.logical_and(cm, wm)
-                    mask = cm if mask is None else jnp.logical_and(mask, cm)
-                for base, off in (
-                    (start, 0), (block_k + start, 2 * d)
-                ):
-                    s_i = jax.lax.dot_general(
-                        q, k_ref[0, 0, base : base + dsub],
-                        (((1,), (1,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                        precision=_precision(q.dtype),
-                    )
-                    if mask is not None:
-                        s_i = jnp.where(mask, s_i, NEG_INF)
-                    e = jnp.exp2(s_i.astype(o_ref.dtype))
-                    acc_scr[:, off : off + 2 * d] = acc_scr[
-                        :, off : off + 2 * d
-                    ] + jax.lax.dot_general(
-                        e, v_ref[0, 0, base : base + dsub],
-                        (((1,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                        precision=_precision(e.dtype),
-                    )
-
-            pl.when(live)(_sub) if live is not None else _sub()
-
-    if causal:
-        crosses_diag = (
-            kv_idx * block_k + (block_k - 1) > q_idx * block_q + q_offset
-        )
-        is_tail = (kv_idx == n_kv - 1) if need_tail else False
-        needs_mask = jnp.logical_or(crosses_diag, jnp.asarray(is_tail))
-        if window is not None:
-            crosses_win = (
-                kv_idx * block_k
-                < q_idx * block_q + q_offset + (block_q - 1) - (window - 1)
-            )
-            needs_mask = jnp.logical_or(needs_mask, crosses_win)
-        masked_fn = (
-            _compute_masked_subs if diag_subs > 1 else lambda: _compute(True)
-        )
-        pl.when(jnp.logical_and(diag_ok, needs_mask))(masked_fn)
-        pl.when(jnp.logical_and(diag_ok, jnp.logical_not(needs_mask)))(
-            lambda: _compute(False)
-        )
-    elif need_tail:
-        is_tail = kv_idx == n_kv - 1
-        masked_fn = (
-            _compute_masked_subs if diag_subs > 1 else lambda: _compute(True)
-        )
-        pl.when(is_tail)(masked_fn)
-        pl.when(jnp.logical_not(is_tail))(lambda: _compute(False))
-    else:
-        _compute(False)
-
-    @pl.when(kv_idx == n_kv - 1)
-    def _finish():
-        acc = acc_scr[:]  # [rows, 4d] = [o_A | l_A*ones | o_B | l_B*ones]
-        # l rides the ones-lanes, replicated across d lanes per head — the
-        # per-half divide is a plain element-wise op, no broadcast reshape
-        num = jnp.concatenate([acc[:, :d], acc[:, 2 * d : 3 * d]], axis=1)
-        den = jnp.concatenate([acc[:, d : 2 * d], acc[:, 3 * d :]], axis=1)
-        safe_den = jnp.where(den == 0.0, 1.0, den)
-        o_val = (num / safe_den).astype(o_ref.dtype)
-        l2 = jnp.concatenate(
-            [acc[:, d : d + 1], acc[:, 3 * d : 3 * d + 1]], axis=1
-        )  # [rows, 2]
-        safe_l2 = jnp.where(l2 == 0.0, 1.0, l2)
-        lse_val = jnp.where(l2 == 0.0, NEG_INF, jnp.log(safe_l2))
-        if guard:
-            pos = _row_iota(1)[:, :1] + q_idx * block_q
-            real = pos < q_len
-            if causal:
-                real = jnp.logical_and(real, pos + q_offset >= 0)
-            bad2 = jnp.logical_or(
-                jnp.logical_not(jnp.isfinite(l2)),
-                jnp.logical_or(l2 > 2.0 ** 120, l2 < 2.0 ** -100),
-            )
-            bad = jnp.logical_or(bad2[:, :1], bad2[:, 1:])
-            bad = jnp.logical_or(
-                bad,
-                jnp.logical_not(jnp.isfinite(num)).any(
-                    axis=-1, keepdims=True
-                ),
-            )
-            cnt = jnp.sum(jnp.logical_and(bad, real).astype(jnp.float32))
-            flag_ref[0, 0] = jnp.full((8, _LANES), cnt, jnp.float32)
-        o_ref[0, 0] = o_val.reshape(g_stack, block_q, 2 * d)
-        lse_ref[0, 0] = lse_val.reshape(g_stack, block_q, 2)
+def _prep(q, k, v, block_q, block_k):
+    """Pad lengths to tile multiples and head dims to powers of two. Tiles
+    are `default_blocks` unless a test of the tiling passes its own."""
+    b, hq, n, d = q.shape
+    s = k.shape[2]
+    d_v = v.shape[-1]
+    bq0, bk0 = default_blocks(n, s, d)
+    block_q = block_q or bq0
+    block_k = block_k or bk0
+    dp, dvp = _pow2(d), _pow2(d_v)
+    q = _pad_axis(_pad_axis(q, 2, _round_up(n, block_q)), 3, dp)
+    k = _pad_axis(_pad_axis(k, 2, _round_up(s, block_k)), 3, dp)
+    v = _pad_axis(_pad_axis(v, 2, _round_up(s, block_k)), 3, dvp)
+    return q, k, v, block_q, block_k
 
 
 def _fwd(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    causal: bool,
-    sm_scale: float | None,
-    q_offset: int,
-    block_q: int,
-    block_k: int,
-    interpret: bool | None,
-    num_sub: int = 1,
-    pipeline_subs: bool = True,
-    stable: bool = True,
-    k_scale: jax.Array | None = None,
-    v_scale: jax.Array | None = None,
-    window: int | None = None,
-    sinks: int = 0,
-    stack_group: bool | None = None,
-    guard: bool = False,
-    pack_heads: bool | None = None,
-    diag_sub_width: int = 512,
-    score_tile_mb: int = 4,
-    vmem_mb: int | None = None,
-    k_max: jax.Array | None = None,
+    q, k, v, kv_lens, q_offsets, *, causal, sm_scale, interpret,
+    window=None, sinks=0, k_scale=None, v_scale=None, block_q=None,
+    block_k=None,
 ):
-    quant = k_scale is not None
-    assert window is None or (causal and window >= 1), (window, causal)
-    assert sinks == 0 or window is not None, (sinks, window)
-    assert not (guard and stable), "guard instruments the fixed-max kernel"
-    if interpret is None:
-        interpret = default_interpret()
+    """Padded-call forward -> (out [B, Hq, N, Dv], lse [B, Hq, N] natural)."""
+    if window is not None and not (causal and window >= 1):
+        raise ValueError(f"window={window} needs causal=True and window >= 1")
+    if sinks and window is None:
+        raise ValueError("sinks need a window")
+    interpret = resolve_interpret(interpret)
     b, hq, n, d = q.shape
-    _, hkv, s, _ = k.shape
+    hkv, s = k.shape[1], k.shape[2]
     d_v = v.shape[-1]
-    assert hq % hkv == 0, (hq, hkv)
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     group = hq // hkv
-    # stable="auto": the HYBRID kernel — per-q-block discipline dispatch on
-    # an SMEM score bound (|s| <= ||q_row|| * max||k||, Cauchy-Schwarz).
-    # Blocks whose bound sits inside exp2's safe band run fixed-max; the
-    # rest run the online rescale — in the SAME kernel, statement-level
-    # predicated, so "auto" costs one fused norm pass and ZERO extra
-    # dispatches (the lax.cond design measured 56 us/call of conditional
-    # plumbing at 4K/d128 — docs/perf_journal.md round 3).
-    hybrid = stable == "auto"
-    fast_shape = stable is not True  # fixed-max or hybrid: fast tuning
-    # d=64 KV-head pairing (see _fwd_kernel_packed): fixed-max only, needs
-    # an even KV-head count and square head dims; quant scales are per
-    # head so the block-diagonal trick would double the scale refs — the
-    # quant path keeps the unpacked kernel.
-    if pack_heads is None:
-        pack_heads = (
-            stable is False and not quant and d == 64 and d_v == 64
-            and hkv % 2 == 0
-        )
-    if pack_heads:
-        assert not stable and not quant and d == 64 and d_v == 64
-        assert hkv % 2 == 0, hkv
-        return _fwd_packed(
-            q, k, v, causal, sm_scale, q_offset, block_q, block_k,
-            interpret, window=window, sinks=sinks, guard=guard,
-        )
-    block_q, block_k = _auto_blocks(
-        block_q, block_k, d, stable=not fast_shape, group=group
-    )
-    # GQA group stacking (see _fwd_kernel g_stack): one program computes
-    # the whole group against one K/V stream. Default ON only for the
-    # fixed-max discipline — measured on-chip (causal 4K, device-trace):
-    #   d128 stable=False 118.8 -> 139.4 TF; d64 60.0 -> 69.7 TF (win)
-    #   d128 stable=True  107.7 -> 76.7 TF; d64 53.9 -> 38.3 TF (LOSS —
-    #   the online-rescale VPU passes scale with rows, and the stacked
-    #   tile shrinks block_k, multiplying rescale count per KV token)
-    if stack_group is None:
-        stack_group = group > 1 and fast_shape
-    g_stack = group if stack_group else 1
-    if g_stack > 1:
-        # VMEM discipline (measured on-chip, v5e 16 MB scoped): keep the
-        # stacked rows at <= 2048 (rows=4096 stable=True read 18.3 MB and
-        # OOM'd — the m/l/acc scratch scales with rows) and the f32 score
-        # tile ([rows, block_k]) at <= 4 MB — its bf16 exp-weight copy,
-        # the scratch, and the double-buffered operand tiles ride on top
-        # (an 8 MB tile cap measured 21.9 MB scoped and OOM'd).
-        while g_stack * block_q > 2048 and block_q > 128:
-            block_q //= 2
-        while (g_stack * block_q * block_k * 4 > (score_tile_mb << 20)
-               and block_k > 256):
-            block_k //= 2
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
-    # fold the score scale AND log2(e) into q (cost O(N*D)): scores land in
-    # the log2 domain so the kernel's softmax uses exp2 directly, saving the
-    # range-reduction multiply inside exp on every O(N*S) score element.
-    # (An in-kernel fold into VMEM scratch was A/B'd in round 4 and LOST
-    # ~3 us at 4K — the XLA pass pipelines better than the per-block
-    # multiply+scratch round trip: benchmarks/probe_auto_gap.py.)
-    qf32 = q.astype(jnp.float32) * (sm_scale * _LOG2E)
-
-    def _row_norm2(x):
-        # squared row norms, reduce-over-d LOWERED AS A DOT so it rides the
-        # MXU: XLA's vectorized minor-dim reduce measured 12 us over q at
-        # 4K vs ~7 us for an 8-wide ones-matrix contraction (f32
-        # accumulation; benchmarks/probe_auto_gap.py round 4). Squares stay
-        # in the storage dtype for FLOAT inputs — the <=1% norm error is
-        # irrelevant against the 78-vs-110 threshold margin, and bf16
-        # square overflow -> inf bound -> the stable branch (conservative).
-        # 8-bit inputs (int8 KV cache, fp8) must widen first: int8 squares
-        # WRAP (127^2 mod 256) and a wrapped bound is UNSOUND.
-        if x.dtype.itemsize == 1:
-            x = x.astype(jnp.float32)
-        ones8 = jnp.ones((x.shape[-1], 8), x.dtype)
-        return jax.lax.dot_general(
-            x * x, ones8, (((x.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )[..., 0]
-
-    qn2_pre = None
-    if hybrid:
-        # q row norms from the raw q; the sm_scale*log2e factor is folded
-        # into `bound` below
-        qn2_pre = _row_norm2(q)
-    kmax = None
-    if hybrid:
-        if k_max is not None:
-            # caller-cached max||k|| (a property of K alone, cacheable
-            # exactly like the quant scales — e.g. maintained incrementally
-            # alongside a KV cache): skip the per-call norm pass.
-            kmax = jnp.asarray(k_max, jnp.float32).reshape(1, 1)
-        else:
-            kn2 = _row_norm2(k)  # [b, hkv, s]
-            if quant:
-                kn2 = kn2 * jnp.square(k_scale.astype(jnp.float32)[..., 0])
-            kmax = jnp.sqrt(kn2.max()).reshape(1, 1)
-    q = qf32.astype(q.dtype)
-
-    block_q = min(block_q, max(n, 8))
-    block_k = min(block_k, max(s, 128))
-    pad_q = (-n) % block_q
-    pad_k = (-s) % block_k
-    if pad_q:
-        q = jnp.pad(q, ((0, 0), (0, 0), (0, pad_q), (0, 0)))
-    if pad_k:
-        k = jnp.pad(k, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-        v = jnp.pad(v, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-    if quant:
-        # per-token scales arrive [B, Hkv, S, 1]; relayout lane-major
-        # [B, Hkv, 1, S] so the kernel broadcasts one scale row across the
-        # score tile's lanes (same layout as flash_decode's int8 path).
-        # Padded keys get scale 0 (their scores are tail-masked anyway).
-        k_scale = k_scale.reshape(b, hkv, 1, s).astype(jnp.float32)
-        v_scale = v_scale.reshape(b, hkv, 1, s).astype(jnp.float32)
-        if pad_k:
-            k_scale = jnp.pad(k_scale, ((0, 0), (0, 0), (0, 0), (0, pad_k)))
-            v_scale = jnp.pad(v_scale, ((0, 0), (0, 0), (0, 0), (0, pad_k)))
-    np_, sp = q.shape[2], k.shape[2]
-    n_q, n_kv = np_ // block_q, sp // block_k
-    bound = None
-    if hybrid:
-        # per-q-block score bound (the q half of Cauchy-Schwarz), computed
-        # XLA-side because an in-kernel row-norm reduce costs ~0.53 us per
-        # q block (cross-lane sum over d) — 17 of the r3 design's 18 us
-        # gap at 4K (benchmarks/probe_auto_gap.py). Padded rows: norm 0.
-        qn2 = qn2_pre
-        if pad_q:
-            qn2 = jnp.pad(qn2, ((0, 0), (0, 0), (0, pad_q)))
-        if g_stack > 1:
-            qb = qn2.reshape(b, hkv, group, n_q, block_q).max(axis=(2, 4))
-        else:
-            qb = qn2.reshape(b, hq, n_q, block_q).max(axis=-1)
-        # [b, heads, n_q]; sm_scale*log2e re-applied (qn2 is pre-fold)
-        bound = jnp.sqrt(qb) * (abs(sm_scale) * _LOG2E) * kmax.reshape(())
-    if block_k % num_sub:
-        num_sub = 1
-    # fixed-max masked blocks split into 512-wide predicated sub-tiles so
-    # fully-dead diagonal halves are skipped (see _compute_masked_fast)
-    diag_subs = max(block_k // diag_sub_width, 1) if fast_shape else 1
-    # Windowed KV grid (see _fwd_kernel's windowed-grid block): shrink the
-    # kv grid dimension to the band itself so sliding-window cost is
-    # O(N*window) in launched programs. Sink columns must fit block 0
-    # (one reserved grid step); otherwise keep the full predicated grid.
-    n_kv_grid = None
-    sink_w = min(block_k, -(-max(sinks, 1) // _LANES) * _LANES)
-    if causal and window is not None and sinks <= block_k:
-        span = (window - 1 + block_q - 1) // block_k + 2
-        # sink_special (narrow additive sink on the first band step)
-        # needs NO reserved grid step; the generic sink path reserves one
-        maybe_special = (
-            sinks > 0 and sink_w < block_k
-            and stable is False and not hybrid
-        )
-        grid_kv = min(
-            n_kv, span + (1 if (sinks and not maybe_special) else 0)
-        )
-        if grid_kv < n_kv:
-            n_kv_grid = grid_kv
-    # must mirror _fwd_kernel's definition exactly
-    sink_special = (
-        n_kv_grid is not None and sinks > 0 and sink_w < block_k
-        and stable is False and not hybrid
-    )
-
-    kern_kwargs = dict(
-        n_kv=n_kv,
-        causal=causal,
-        q_offset=q_offset,
-        kv_len=s,
-        q_len=n,
-        block_q=block_q,
-        block_k=block_k,
-        num_sub=num_sub,
-        pipeline_subs=pipeline_subs,
-        stable=stable,
-        quant=quant,
-        window=window,
-        sinks=sinks,
-        diag_subs=diag_subs,
-        g_stack=g_stack,
-        guard=guard,
-        n_kv_grid=n_kv_grid,
-        hybrid=hybrid,
-    )
-    kernel = functools.partial(_fwd_kernel, **kern_kwargs)
-    # Dead-block DMA elision (same trick as flash_decode's dead-split
-    # elision): KV blocks whose compute is pl.when'd off still cost their
-    # HBM->VMEM copy unless the index_map maps them onto an already-resident
-    # block — consecutive grid steps with an identical block index make
-    # Pallas elide the copy. Causal: blocks past the diagonal clamp to the
-    # q block's last visible KV block; sliding window (sinks=0): blocks
-    # below the band clamp up to its first live block. Live blocks are
-    # never remapped (min/max only move out-of-range j), so numerics are
-    # untouched — the kernel's program_id-based predication decides what
-    # runs.
-    if causal and n_kv_grid is not None:
-        # windowed grid: the index map IS the band walk (grid step j ->
-        # first live block + j, clamped; step 0 = the sink block when
-        # sinks > 0). Must mirror the kernel's kv_idx computation exactly.
-        def _kv_j(i, j):
-            last = jnp.clip(
-                (i * block_q + q_offset + block_q - 1) // block_k,
-                0, n_kv - 1,
-            )
-            first = jnp.maximum(
-                (i * block_q + q_offset - (window - 1)) // block_k, 0
-            )
-            first = jnp.minimum(first, last)
-            if sinks and not sink_special:
-                return jnp.where(
-                    j == 0, 0, jnp.minimum(first + j - 1, last)
-                )
-            # sink_special rides the band walk (no reserved step)
-            return jnp.minimum(first + j, last)
-    elif causal:
-        def _kv_j(i, j):
-            last = jnp.maximum(
-                (i * block_q + q_offset + block_q - 1) // block_k, 0
-            )
-            j = jnp.minimum(j, last)
-            if window is not None and sinks == 0:
-                first = jnp.maximum(
-                    (i * block_q + q_offset - (window - 1)) // block_k, 0
-                )
-                j = jnp.maximum(j, jnp.minimum(first, last))
-            return j
-    else:
-        _kv_j = lambda i, j: j  # noqa: E731
-    rows = g_stack * block_q
-    if g_stack > 1:
-        # grid over KV heads; the group rides inside the q tile
-        kv_map = lambda bb, h, i, j: (bb, h, _kv_j(i, j), 0)  # noqa: E731
-        scale_map = lambda bb, h, i, j: (bb, h, 0, _kv_j(i, j))  # noqa: E731
-        q_in = q.reshape(b, hkv, group, np_, d)
-        in_specs = [
-            pl.BlockSpec(
-                (1, 1, group, block_q, d), lambda bb, h, i, j: (bb, h, 0, i, 0)
-            ),
-            pl.BlockSpec((1, 1, block_k, d), kv_map),
-            pl.BlockSpec((1, 1, block_k, d_v), kv_map),
-        ]
-        grid = (b, hkv, n_q, n_kv_grid or n_kv)
-        out_specs = [
-            pl.BlockSpec(
-                (1, 1, group, block_q, d_v),
-                lambda bb, h, i, j: (bb, h, 0, i, 0),
-            ),
-            pl.BlockSpec(
-                (1, 1, group, block_q, 1), lambda bb, h, i, j: (bb, h, 0, i, 0)
-            ),
-        ]
-        out_shape = [
-            jax.ShapeDtypeStruct((b, hkv, group, np_, d_v), q.dtype),
-            jax.ShapeDtypeStruct((b, hkv, group, np_, 1), jnp.float32),
-        ]
-        if guard:
-            # 8-sublane flag block: TPU block shapes need the trailing two
-            # dims (8, 128)-aligned; the count is splatted across the block
-            out_specs.append(pl.BlockSpec(
-                (1, 1, 8, _LANES), lambda bb, h, i, j: (bb, h, i, 0)
-            ))
-            out_shape.append(
-                jax.ShapeDtypeStruct((b, hkv, n_q * 8, _LANES), jnp.float32)
-            )
-    else:
-        kv_map = lambda bb, h, i, j: (bb, h // group, _kv_j(i, j), 0)  # noqa: E731
-        scale_map = lambda bb, h, i, j: (bb, h // group, 0, _kv_j(i, j))  # noqa: E731
-        q_in = q
-        in_specs = [
-            pl.BlockSpec((1, 1, block_q, d), lambda bb, h, i, j: (bb, h, i, 0)),
-            pl.BlockSpec((1, 1, block_k, d), kv_map),
-            pl.BlockSpec((1, 1, block_k, d_v), kv_map),
-        ]
-        grid = (b, hq, n_q, n_kv_grid or n_kv)
-        out_specs = [
-            pl.BlockSpec((1, 1, block_q, d_v), lambda bb, h, i, j: (bb, h, i, 0)),
-            pl.BlockSpec((1, 1, block_q, 1), lambda bb, h, i, j: (bb, h, i, 0)),
-        ]
-        out_shape = [
-            jax.ShapeDtypeStruct((b, hq, np_, d_v), q.dtype),
-            jax.ShapeDtypeStruct((b, hq, np_, 1), jnp.float32),
-        ]
-        if guard:
-            # 8-sublane flag block: TPU block shapes need the trailing two
-            # dims (8, 128)-aligned; the count is splatted across the block
-            out_specs.append(pl.BlockSpec(
-                (1, 1, 8, _LANES), lambda bb, h, i, j: (bb, h, i, 0)
-            ))
-            out_shape.append(
-                jax.ShapeDtypeStruct((b, hq, n_q * 8, _LANES), jnp.float32)
-            )
-    operands = [q_in, k, v]
-    if quant:
-        in_specs[2:2] = [pl.BlockSpec((1, 1, 1, block_k), scale_map)]
-        in_specs.append(pl.BlockSpec((1, 1, 1, block_k), scale_map))
-        operands = [q_in, k, k_scale, v, v_scale]
-    if sink_special:
-        # resident [sink_w]-wide slices of KV block 0 (constant index map
-        # -> one DMA per (b, kv head)); order mirrors the kernel unpack
-        kvh = (lambda bb, h, i, j: (bb, h, 0, 0)) if g_stack > 1 else (
-            lambda bb, h, i, j: (bb, h // group, 0, 0)
-        )
-        in_specs.append(pl.BlockSpec((1, 1, sink_w, d), kvh))
-        operands.append(k[:, :, :sink_w])
-        if quant:
-            in_specs.append(pl.BlockSpec((1, 1, 1, sink_w), kvh))
-            operands.append(k_scale[:, :, :, :sink_w])
-        in_specs.append(pl.BlockSpec((1, 1, sink_w, d_v), kvh))
-        operands.append(v[:, :, :sink_w])
-        if quant:
-            in_specs.append(pl.BlockSpec((1, 1, 1, sink_w), kvh))
-            operands.append(v_scale[:, :, :, :sink_w])
-    scratch_shapes = [
-        pltpu.VMEM((rows, _LANES), jnp.float32),
-        pltpu.VMEM((rows, _LANES), jnp.float32),
-        pltpu.VMEM((rows, d_v), jnp.float32),
-    ]
-    call_kwargs = dict(
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-            **({"vmem_limit_bytes": vmem_mb << 20} if vmem_mb else {}),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * b * hq * np_ * sp * d,
-            bytes_accessed=(
-                q.size * q.dtype.itemsize
-                + k.size * k.dtype.itemsize
-                + v.size * v.dtype.itemsize
-                + b * hq * np_ * d_v * q.dtype.itemsize
-            ),
-            transcendentals=b * hq * np_ * sp,
-        ),
-        interpret=interpret,
-    )
-    if hybrid:
-        # The per-q-block bound rides the SCALAR-PREFETCH channel: loaded
-        # into SMEM once per call, indexed [b, h, q_idx] in-kernel. A
-        # multi-element SMEM *operand* block was measured at ~16 us/call
-        # of per-program copy overhead at 4K (benchmarks/probe_auto_gap.py
-        # round 4); prefetch scalars cost nothing per program.
-        wrap = lambda f: (lambda bb, h, i, j, _: f(bb, h, i, j))  # noqa: E731
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec(sp_.block_shape, wrap(sp_.index_map))
-                for sp_ in in_specs
-            ],
-            out_specs=[
-                pl.BlockSpec(sp_.block_shape, wrap(sp_.index_map))
-                for sp_ in out_specs
-            ],
-            scratch_shapes=scratch_shapes,
-        )
-
-        # (A whole-call lax.cond dispatch — all-blocks-fast -> pure
-        # fixed-max kernel — was re-tried in round 5 and re-measured at
-        # ~45 us/call of conditional plumbing on the 4K rung (137.7 ->
-        # 126.0 TF), confirming the r3 measurement the in-kernel hybrid
-        # replaced. The per-program statement-level dispatch stays.)
-        out, lse = pl.pallas_call(
-            kernel, grid_spec=grid_spec, **call_kwargs
-        )(bound, *operands)
-        flag = []
-    else:
-        out, lse, *flag = pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=out_specs,
-            scratch_shapes=scratch_shapes,
-            **call_kwargs,
-        )(*operands)
-    if g_stack > 1:
-        out = out.reshape(b, hq, np_, d_v)
-        lse = lse.reshape(b, hq, np_, 1)
-    if guard:
-        # bad-row count across all q blocks; > 0 means the fixed-max range
-        # contract was breached somewhere and the caller must fall back
-        return out[:, :, :n], lse[:, :, :n, 0], flag[0][..., ::8, 0].sum()  # one sublane per splatted (8, LANES) block: true count
-    return out[:, :, :n], lse[:, :, :n, 0]
-
-
-def _fwd_packed(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    causal: bool,
-    sm_scale: float | None,
-    q_offset: int,
-    block_q: int | None,
-    block_k: int | None,
-    interpret: bool,
-    *,
-    window: int | None = None,
-    sinks: int = 0,
-    guard: bool = False,
-):
-    """Wrapper for the KV-head-paired d=64 kernel (_fwd_kernel_packed).
-
-    Rearranges q so each row carries the PAIR's queries along the lane
-    axis ([b, hkv, G, n, 64] -> [b, hkv/2, G, n, 128], one cheap XLA
-    transpose over O(q) bytes), streams K/V with a 2-head block spec
-    (no HBM overhead — the block-diagonal expansion happens in VMEM),
-    and unpacks the lane-paired output/lse back to per-head layout.
-    """
-    b, hq, n, d = q.shape
-    _, hkv, s, _ = k.shape
-    group = hq // hkv
-    pairs = hkv // 2
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
-    q = (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
-
-    if block_k is None:
-        block_k = 512
-    if block_q is None:
-        # rows = group*block_q; the f32 score tile is [rows, 2*block_k]
-        # — cap it at 4 MB like the stacked d128 path
-        block_q = max(128, 1024 // group)
-    block_q = min(block_q, max(n, 8))
-    block_k = min(block_k, max(s, 128))
-    while group * block_q * 2 * block_k * 4 > (4 << 20) and block_k > 256:
-        block_k //= 2
-    pad_q = (-n) % block_q
-    pad_k = (-s) % block_k
-    if pad_q:
-        q = jnp.pad(q, ((0, 0), (0, 0), (0, pad_q), (0, 0)))
-    if pad_k:
-        k = jnp.pad(k, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-        v = jnp.pad(v, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-    np_, sp = q.shape[2], k.shape[2]
-    n_q, n_kv = np_ // block_q, sp // block_k
-
-    # pack the pair's queries along lanes: row (g, i) = [q_even | q_odd]
-    q_in = (
-        q.reshape(b, pairs, 2, group, np_, d)
-        .transpose(0, 1, 3, 4, 2, 5)
-        .reshape(b, pairs, group, np_, 2 * d)
-    )
-    # PRE-PACK K/V per tile (round 5; see the kernel note): tile rows
-    # [0:bk] = [k_A | 0], [bk:2bk] = [0 | k_B]; V rows [v | ones] (the
-    # ones lanes feed the MXU softmax-denominator trick). One XLA pass,
-    # 2x K/V bytes — removes the kernel's per-(q, kv)-visit VPU pack.
-    sp_blocks = sp // block_k
-    kA = k[:, 0::2].reshape(b, pairs, sp_blocks, block_k, d)
-    kB = k[:, 1::2].reshape(b, pairs, sp_blocks, block_k, d)
-    zk = jnp.zeros_like(kA)
-    k_in = jnp.concatenate(
-        [jnp.concatenate([kA, zk], -1), jnp.concatenate([zk, kB], -1)], -2
-    ).reshape(b, pairs, 2 * sp, 2 * d)
-    vA = v[:, 0::2].reshape(b, pairs, sp_blocks, block_k, d)
-    vB = v[:, 1::2].reshape(b, pairs, sp_blocks, block_k, d)
-    ov = jnp.ones_like(vA)
-    v_in = jnp.concatenate(
-        [jnp.concatenate([vA, ov], -1), jnp.concatenate([vB, ov], -1)], -2
-    ).reshape(b, pairs, 2 * sp, 2 * d)
-
-    diag_subs = max(block_k // 256, 1) if causal else 1
-    kernel = functools.partial(
-        _fwd_kernel_packed,
-        n_kv=n_kv,
-        causal=causal,
-        q_offset=q_offset,
-        kv_len=s,
-        q_len=n,
-        block_q=block_q,
-        block_k=block_k,
-        d=d,
-        window=window,
-        sinks=sinks,
-        diag_subs=diag_subs,
-        g_stack=group,
-        guard=guard,
-    )
-    if causal:
-        def _kv_j(i, j):
-            last = jnp.maximum(
-                (i * block_q + q_offset + block_q - 1) // block_k, 0
-            )
-            j = jnp.minimum(j, last)
-            if window is not None and sinks == 0:
-                first = jnp.maximum(
-                    (i * block_q + q_offset - (window - 1)) // block_k, 0
-                )
-                j = jnp.maximum(j, jnp.minimum(first, last))
-            return j
-    else:
-        _kv_j = lambda i, j: j  # noqa: E731
-    kv_map = lambda bb, h, i, j: (bb, h, _kv_j(i, j), 0)  # noqa: E731
-
-    rows = group * block_q
-    out_specs = [
-        pl.BlockSpec(
-            (1, 1, group, block_q, 2 * d), lambda bb, h, i, j: (bb, h, 0, i, 0)
-        ),
-        pl.BlockSpec(
-            (1, 1, group, block_q, 2), lambda bb, h, i, j: (bb, h, 0, i, 0)
-        ),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((b, pairs, group, np_, 2 * d), q.dtype),
-        jax.ShapeDtypeStruct((b, pairs, group, np_, 2), jnp.float32),
-    ]
-    if guard:
-        out_specs.append(pl.BlockSpec(
-            (1, 1, 8, _LANES), lambda bb, h, i, j: (bb, h, i, 0)
-        ))
-        out_shape.append(
-            jax.ShapeDtypeStruct((b, pairs, n_q * 8, _LANES), jnp.float32)
-        )
-    out, lse, *flag = pl.pallas_call(
-        kernel,
-        grid=(b, pairs, n_q, n_kv),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, group, block_q, 2 * d),
-                lambda bb, h, i, j: (bb, h, 0, i, 0),
-            ),
-            # prepacked 2-head KV tile: rows [A | B], lanes 2d (see the
-            # construction above); the j-th tile is rows [2bk*j, 2bk*(j+1))
-            pl.BlockSpec((1, 1, 2 * block_k, 2 * d), kv_map),
-            pl.BlockSpec((1, 1, 2 * block_k, 2 * d), kv_map),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[
-            # [o_A | l_A*ones | o_B | l_B*ones] — PV's ones-augmented
-            # output carries the softmax denominators (see _pv)
-            pltpu.VMEM((rows, 4 * d), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * b * hq * np_ * sp * d,
-            bytes_accessed=(
-                q.size * q.dtype.itemsize
-                + k.size * k.dtype.itemsize
-                + v.size * v.dtype.itemsize
-                + b * hq * np_ * d * q.dtype.itemsize
-            ),
-            transcendentals=b * hq * np_ * sp,
-        ),
-        interpret=interpret,
-    )(q_in, k_in, v_in)
-    out = (
-        out.reshape(b, pairs, group, np_, 2, d)
-        .transpose(0, 1, 4, 2, 3, 5)
-        .reshape(b, hq, np_, d)
-    )
-    lse = (
-        lse.transpose(0, 1, 4, 2, 3)
-        .reshape(b, hq, np_)
-    )
-    if guard:
-        return out[:, :, :n], lse[:, :, :n], flag[0][..., ::8, 0].sum()  # one sublane per splatted (8, LANES) block: true count
-    return out[:, :, :n], lse[:, :, :n]
-
-
-# ---------------------------------------------------------------------------
-# Ragged variant: per-batch KV lengths and query offsets (chunked prefill
-# against a live cache; a capability the reference lacked — it assumed
-# multiple-of-tile sizes everywhere, e.g. flashattn_forward_wmma_v5_cp_async
-# .cu:114). Lengths/offsets ride in SMEM, masks become dynamic compares.
-# ---------------------------------------------------------------------------
-
-def _fwd_kernel_ragged(
-    *refs,
-    n_kv: int,
-    sm_scale: float,
-    causal: bool,
-    block_q: int,
-    block_k: int,
-    stable: bool,
-    quant: bool = False,
-    window: int | None = None,
-    sinks: int = 0,
-):
-    # refs: len_ref/off_ref are SMEM [B, 1] int32 (valid KV tokens and
-    # causal query-position offset per batch row); quant=True adds lane-major
-    # per-token dequant scale refs for an 8-bit KV cache (see _fwd_kernel).
-    if quant:
-        (len_ref, off_ref, q_ref, k_ref, ks_ref, v_ref, vs_ref,
-         o_ref, lse_ref, m_scr, l_scr, acc_scr) = refs
-    else:
-        (len_ref, off_ref, q_ref, k_ref, v_ref,
-         o_ref, lse_ref, m_scr, l_scr, acc_scr) = refs
-        ks_ref = vs_ref = None
-    b = pl.program_id(0)
-    q_idx = pl.program_id(2)
-    kv_idx = pl.program_id(3)
-    kv_len = len_ref[b, 0]
-    q_off = off_ref[b, 0]
-
-    @pl.when(kv_idx == 0)
-    def _init():
-        # fixed-max: m stays 0 for its whole life (lse = log(l) + m*ln2);
-        # the online path starts the running max at -inf (same as dense)
-        m_scr[:] = (
-            jnp.zeros_like(m_scr) if not stable
-            else jnp.full_like(m_scr, NEG_INF)
-        )
-        l_scr[:] = jnp.zeros_like(l_scr)
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    live = kv_idx * block_k < kv_len
-    if causal:
-        live = jnp.logical_and(
-            live, kv_idx * block_k <= q_idx * block_q + q_off + (block_q - 1)
-        )
-        if window is not None:
-            in_band = (
-                kv_idx * block_k + (block_k - 1)
-                >= q_idx * block_q + q_off - (window - 1)
-            )
-            if sinks:
-                in_band = jnp.logical_or(in_band, kv_idx * block_k < sinks)
-            live = jnp.logical_and(live, in_band)
-
-    def _compute(masked: bool):
-        # q arrives sm_scale*log2e-prefolded (wrapper); softmax runs in the
-        # log2 domain like the dense kernel.
-        q = q_ref[0, 0]
-        k = k_ref[0, 0]
-        v = v_ref[0, 0]
-        if quant:
-            k = k.astype(q.dtype)
-            v = v.astype(q.dtype)
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(q.dtype),
-        )
-        if quant:
-            s = s * ks_ref[0, 0]  # [1, block_k] per-token K dequant scale
-            vs = vs_ref[0, 0].astype(v.dtype)
-
-        mask = None
-        if masked:
-            col = kv_idx * block_k + jax.lax.broadcasted_iota(
-                jnp.int32, (block_q, block_k), 1
-            )
-            mask = col < kv_len
-            if causal:
-                row = (
-                    q_idx * block_q
-                    + q_off
-                    + jax.lax.broadcasted_iota(jnp.int32, (block_q, block_k), 0)
-                )
-                mask = jnp.logical_and(mask, col <= row)
-                if window is not None:
-                    wm = col > row - window
-                    if sinks:
-                        wm = jnp.logical_or(wm, col < sinks)
-                    mask = jnp.logical_and(mask, wm)
-            s = jnp.where(mask, s, NEG_INF)
-
-        if not stable:
-            # fixed-max discipline (see flash_attention's `stable` doc):
-            # exp2(NEG_INF) flushes to exact 0, so masked lanes need no
-            # post-exp zeroing and fully-dead rows leave l at 0 (the
-            # finish epilogue's safe_l handles them)
-            p = jnp.exp2(s.astype(v.dtype))
-            l_scr[:] = l_scr[:] + jnp.sum(
-                p, axis=-1, keepdims=True, dtype=jnp.float32
-            )
-            acc_scr[:] = acc_scr[:] + jax.lax.dot_general(
-                p * vs if quant else p, v, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=_precision(v.dtype),
-            )
-            return
-
-        m_prev = m_scr[:]
-        l_prev = l_scr[:]
-        m_tile = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_tile)
-        scale_old = jnp.exp2(m_prev - m_next)
-        p = jnp.exp2((s - m_next[:, :1]).astype(v.dtype))
-        if masked:
-            # a row fully masked in EVERY block so far (possible with a
-            # negative q_offset) has m_next == NEG_INF -> exp2(0) == 1;
-            # zero masked lanes explicitly on this instantiation only
-            p = jnp.where(mask, p, jnp.zeros_like(p))
-        l_next = l_prev * scale_old + jnp.sum(
-            p, axis=-1, keepdims=True, dtype=jnp.float32
-        )
-        m_scr[:] = m_next
-        l_scr[:] = l_next
-        pv = jax.lax.dot_general(
-            p * vs if quant else p, v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(v.dtype),
-        )
-        acc_scr[:] = acc_scr[:] * scale_old[:, :1] + pv
-
-    # mask-skip (same pattern as the dense kernel, but fully dynamic):
-    # a block pays mask passes only if it crosses the kv_len tail or the
-    # causal diagonal for this batch row.
-    is_tail = (kv_idx + 1) * block_k > kv_len
-    if causal:
-        crosses = (
-            kv_idx * block_k + (block_k - 1) > q_idx * block_q + q_off
-        )
-        if window is not None:
-            crosses = jnp.logical_or(
-                crosses,
-                kv_idx * block_k
-                < q_idx * block_q + q_off + (block_q - 1) - (window - 1),
-            )
-        needs_mask = jnp.logical_or(is_tail, crosses)
-    else:
-        needs_mask = is_tail
-    pl.when(jnp.logical_and(live, needs_mask))(lambda: _compute(True))
-    pl.when(jnp.logical_and(live, jnp.logical_not(needs_mask)))(
-        lambda: _compute(False)
-    )
-
-    @pl.when(kv_idx == n_kv - 1)
-    def _finish():
-        l = l_scr[:, :1]
-        safe_l = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, 0] = (acc_scr[:] / safe_l).astype(o_ref.dtype)
-        lse = m_scr[:, :1] * _LN2 + jnp.log(safe_l)
-        lse_ref[0, 0] = jnp.where(l == 0.0, NEG_INF, lse)
-
-
-def _fwd_ragged(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    kv_lens: jax.Array,
-    q_offsets: jax.Array,
-    causal: bool,
-    sm_scale: float | None,
-    block_q: int | None,
-    block_k: int | None,
-    interpret: bool | None,
-    stable: bool,
-    k_scale: jax.Array | None = None,
-    v_scale: jax.Array | None = None,
-    window: int | None = None,
-    sinks: int = 0,
-) -> jax.Array:
     quant = k_scale is not None
-    assert window is None or (causal and window >= 1), (window, causal)
-    assert sinks == 0 or window is not None, (sinks, window)
-    if stable == "auto":
-        # the ragged kernel has no hybrid instantiation; map "auto" to the
-        # online path EXPLICITLY (always correct, never fast) rather than
-        # letting the truthy string fall through silently (ADVICE r3)
-        stable = True
-    assert stable in (True, False), stable
-    if interpret is None:
-        interpret = default_interpret()
-    b, hq, n, d = q.shape
-    _, hkv, s, _ = k.shape
-    d_v = v.shape[-1]
-    group = hq // hkv
-    block_q, block_k = _auto_blocks(block_q, block_k, d, stable=stable, group=group)
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
-    # fold sm_scale * log2(e) into q: the kernel softmax runs in the log2
-    # domain and skips the per-score scale multiply (same as the dense path)
-    q = (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
-    block_q = min(block_q, max(n, 8))
-    block_k = min(block_k, max(s, 128))
-    pad_q = (-n) % block_q
-    pad_k = (-s) % block_k
-    if pad_q:
-        q = jnp.pad(q, ((0, 0), (0, 0), (0, pad_q), (0, 0)))
-    if pad_k:
-        k = jnp.pad(k, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-        v = jnp.pad(v, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-    if quant:
-        # lane-major scale relayout + zero-pad, as in the dense path
-        k_scale = k_scale.reshape(b, hkv, 1, s).astype(jnp.float32)
-        v_scale = v_scale.reshape(b, hkv, 1, s).astype(jnp.float32)
-        if pad_k:
-            k_scale = jnp.pad(k_scale, ((0, 0), (0, 0), (0, 0), (0, pad_k)))
-            v_scale = jnp.pad(v_scale, ((0, 0), (0, 0), (0, 0), (0, pad_k)))
+    q, k, v, block_q, block_k = _prep(q, k, v, block_q, block_k)
     np_, sp = q.shape[2], k.shape[2]
-    n_q, n_kv = np_ // block_q, sp // block_k
-
     kernel = functools.partial(
-        _fwd_kernel_ragged,
-        n_kv=n_kv,
-        sm_scale=sm_scale,
-        causal=causal,
-        block_q=block_q,
-        block_k=block_k,
-        stable=stable,
-        quant=quant,
-        window=window,
-        sinks=sinks,
+        _fwd_kernel, quant=quant, causal=causal, window=window, sinks=sinks,
+        scale=float(sm_scale) * _LOG2E, block_q=block_q, block_k=block_k,
     )
-    kv_map = lambda bb, h, i, j: (bb, h // group, j, 0)  # noqa: E731
-    scale_map = lambda bb, h, i, j: (bb, h // group, 0, j)  # noqa: E731
+    row = lambda i, h, bb: (bb,)  # noqa: E731
+    kv = lambda i, h, bb: (bb, h // group, 0, 0)  # noqa: E731
     in_specs = [
-        pl.BlockSpec((b, 1), lambda bb, h, i, j: (0, 0), memory_space=pltpu.SMEM),
-        pl.BlockSpec((b, 1), lambda bb, h, i, j: (0, 0), memory_space=pltpu.SMEM),
-        pl.BlockSpec((1, 1, block_q, d), lambda bb, h, i, j: (bb, h, i, 0)),
-        pl.BlockSpec((1, 1, block_k, d), kv_map),
-        pl.BlockSpec((1, 1, block_k, d_v), kv_map),
+        pl.BlockSpec((1,), row),
+        pl.BlockSpec((1,), row),
+        pl.BlockSpec((None, None, block_q, q.shape[3]),
+                     lambda i, h, bb: (bb, h, i, 0)),
+        pl.BlockSpec((None, None, sp, k.shape[3]), kv),
+        pl.BlockSpec((None, None, sp, v.shape[3]), kv),
     ]
     operands = [
-        kv_lens.reshape(b, 1).astype(jnp.int32),
-        q_offsets.reshape(b, 1).astype(jnp.int32),
+        kv_lens.astype(jnp.int32).reshape(b),
+        q_offsets.astype(jnp.int32).reshape(b),
         q, k, v,
     ]
     if quant:
-        in_specs[4:4] = [pl.BlockSpec((1, 1, 1, block_k), scale_map)]
-        in_specs.append(pl.BlockSpec((1, 1, 1, block_k), scale_map))
-        operands = operands[:4] + [k_scale, operands[4], v_scale]
-    out, _ = pl.pallas_call(
+        sc = lambda i, h, bb: (bb, h // group, 0)  # noqa: E731
+        in_specs += [pl.BlockSpec((None, None, sp), sc)] * 2
+        operands += [
+            _pad_axis(x.reshape(b, hkv, s).astype(jnp.float32), 2, sp)
+            for x in (k_scale, v_scale)
+        ]
+    out, lse = pl.pallas_call(
         kernel,
-        grid=(b, hq, n_q, n_kv),
+        grid=(np_ // block_q, hq, b),
         in_specs=in_specs,
         out_specs=[
-            pl.BlockSpec((1, 1, block_q, d_v), lambda bb, h, i, j: (bb, h, i, 0)),
-            pl.BlockSpec((1, 1, block_q, 1), lambda bb, h, i, j: (bb, h, i, 0)),
+            pl.BlockSpec((None, None, block_q, v.shape[3]),
+                         lambda i, h, bb: (bb, h, i, 0)),
+            pl.BlockSpec((None, None, block_q), lambda i, h, bb: (bb, h, i)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((b, hq, np_, d_v), q.dtype),
-            jax.ShapeDtypeStruct((b, hq, np_, 1), jnp.float32),
+            jax.ShapeDtypeStruct((b, hq, np_, v.shape[3]), q.dtype),
+            jax.ShapeDtypeStruct((b, hq, np_), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, _LANES), jnp.float32),
-            pltpu.VMEM((block_q, _LANES), jnp.float32),
-            pltpu.VMEM((block_q, d_v), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-        ),
+        compiler_params=_COMPILER_PARAMS,
+        backend="triton",
         interpret=interpret,
+        name="flash_fwd",
     )(*operands)
-    return out[:, :, :n]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "causal", "sm_scale", "block_q", "block_k", "interpret", "stable",
-        "window", "sinks",
-    ),
-)
-def flash_attention_ragged(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    kv_lens: jax.Array,
-    q_offsets: jax.Array,
-    *,
-    causal: bool = True,
-    sm_scale: float | None = None,
-    block_q: int | None = DEFAULT_BLOCK_Q,
-    block_k: int | None = DEFAULT_BLOCK_K,
-    interpret: bool | None = None,
-    stable: bool = True,
-    window: int | None = None,
-    sinks: int = 0,
-) -> jax.Array:
-    """Fused attention with per-batch KV lengths and causal query offsets.
-
-    q: [B, Hq, N, D]; k/v: [B, Hkv, S_max, D] (e.g. a padded KV cache);
-    kv_lens: [B] valid keys per row; q_offsets: [B] position of query 0
-    (query i attends key j iff j <= i + q_offsets[b], and j < kv_lens[b]).
-    Forward-only (serving path). Returns [B, Hq, N, Dv].
-
-    stable=False selects the fixed-max exp2 discipline (same bounded-logit
-    contract as flash_attention's `stable`; +18% measured on the dense
-    kernel) — for serving stacks whose logit range is known.
-    """
-    return _fwd_ragged(
-        q, k, v, kv_lens, q_offsets, causal, sm_scale, block_q, block_k,
-        interpret, stable, window=window, sinks=sinks,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "causal", "sm_scale", "block_q", "block_k", "interpret", "stable",
-        "window", "sinks",
-    ),
-)
-def flash_attention_ragged_kv_quant(
-    q: jax.Array,
-    k_q: jax.Array,
-    k_scale: jax.Array,
-    v_q: jax.Array,
-    v_scale: jax.Array,
-    kv_lens: jax.Array,
-    q_offsets: jax.Array,
-    *,
-    causal: bool = True,
-    sm_scale: float | None = None,
-    block_q: int | None = DEFAULT_BLOCK_Q,
-    block_k: int | None = DEFAULT_BLOCK_K,
-    interpret: bool | None = None,
-    stable: bool = True,
-    window: int | None = None,
-    sinks: int = 0,
-) -> jax.Array:
-    """flash_attention_ragged against an 8-bit quantized KV cache.
-
-    k_q/v_q: [B, Hkv, S_max, D] int8 OR float8_e4m3fn; k_scale/v_scale:
-    [B, Hkv, S_max, 1] f32 per-token scales (ops.quant.quantize_kv /
-    the engine's int8 cache layout). Dequant is fused at the kernel's K/V
-    load stage — the 8-bit cache never materializes in full precision in
-    HBM (SURVEY Phase 4; the reference's cp.async load slot). The chunked
-    prefill path (models.engine.extend) uses this for quantized caches.
-    """
-    return _fwd_ragged(
-        q, k_q, v_q, kv_lens, q_offsets, causal, sm_scale, block_q, block_k,
-        interpret, stable, k_scale=k_scale, v_scale=v_scale, window=window,
-        sinks=sinks,
-    )
+    return out[:, :, :n, :d_v], lse[:, :, :n]
 
 
 # ---------------------------------------------------------------------------
-# Pallas backward (FlashAttention-2 recompute), two kernels:
-#   dk/dv: KV-stationary — grid (b, hkv, kv_blocks, group*q_blocks), the
-#     GQA group-sum rides the innermost grid axis into a VMEM carry;
-#   dq:    Q-stationary — grid (b, hq, q_blocks, kv_blocks), like forward.
-# Same recompute math as the reference's online-softmax forward run in
-# reverse: p = exp(s - lse), ds = p * (dp - delta) (no (m, l) state needed
-# because the forward's logsumexp is saved).
+# Backward kernels
 # ---------------------------------------------------------------------------
-
-_POS_BIG = float(1e30)  # lse pad for invalid rows: exp(s - POS_BIG) == 0
-
 
 def _bwd_dkdv_kernel(
-    q_ref, do_ref, lse_ref, delta_ref, k_ref, v_ref,
-    *rest,
-    n_inner: int,
-    n_q: int,
-    causal: bool,
-    q_offset: int,
-    sm_scale: float,
-    block_q: int,
-    block_k: int,
-    window: int | None = None,
-    sinks: int = 0,
-    diag_subs: int = 1,
-    fuse_dq: bool = False,
-    ds_bf16: bool = False,
-    tri: bool = False,
+    len_ref, off_ref, q_ref, do_ref, lse_ref, delta_ref, k_ref, v_ref,
+    dk_ref, dv_ref,
+    *, causal, window, sinks, scale, sm_scale, block_q, block_k, q_len,
+    group,
 ):
-    # fuse_dq (VERDICT r4 task 2): the same program ALSO emits this
-    # (q block, kv block) pair's dq partial — ds @ k, sliced-stored
-    # straight into a [n_kv, ...] partials output (each q-row sub owns
-    # distinct rows, so no scratch accumulation; the wrapper sums over
-    # the kv axis). The two-kernel FA2 recompute EXECUTES 7 matmuls per
-    # pair for 5 useful (s and dp computed in both kernels) — a hard 5/7
-    # ceiling the fused form removes, at the cost of n_kv * |q| partial
-    # HBM traffic (profitable at seq <= 8K; docs/perf_journal.md r3).
-    if fuse_dq:
-        kt_ref, *rest = rest
-        dk_ref, dv_ref, dq_ref, dk_scr, dv_scr = rest
-    else:
-        dk_ref, dv_ref, dk_scr, dv_scr = rest
-        dq_ref = kt_ref = None
-    kv_idx = pl.program_id(2)
-    t = pl.program_id(3)
-    is_first = t == 0
-    is_emit = t == n_inner - 1
-    q_idx = t % n_q
+    j = pl.program_id(0)
+    kv_len = len_ref[0]
+    off = off_ref[0]
+    sl = pl.ds(j * block_k, block_k)
+    k = k_ref[sl, :]
+    v = v_ref[sl, :]
+    cols = j * block_k + lax.broadcasted_iota(jnp.int32, (block_k,), 0)
+    n_q = q_ref.shape[1] // block_q
+    k0 = j * block_k
 
-    @pl.when(is_first)
-    def _init():
-        dk_scr[:] = jnp.zeros_like(dk_scr)
-        dv_scr[:] = jnp.zeros_like(dv_scr)
-
+    # q tiles whose rows can see this KV tile
     if causal:
-        # q block contributes iff its last row reaches this kv block (and,
-        # windowed, iff its first row's window still covers the block)
-        live = q_idx * block_q + (block_q - 1) + q_offset >= kv_idx * block_k
-        crosses = q_idx * block_q + q_offset < kv_idx * block_k + (block_k - 1)
-        if window is not None:
-            in_band = (
-                q_idx * block_q + q_offset
-                <= kv_idx * block_k + (block_k - 1) + (window - 1)
-            )
-            if sinks:
-                in_band = jnp.logical_or(in_band, kv_idx * block_k < sinks)
-            live = jnp.logical_and(live, in_band)
-            crosses = jnp.logical_or(
-                crosses,
-                q_idx * block_q + q_offset + (block_q - 1)
-                > kv_idx * block_k + (window - 1),
-            )
+        lo = lax.div(jnp.maximum(k0 - off, 0), block_q)
     else:
-        live = True
-        crosses = False
+        lo = 0
+    hi = n_q
+    if window is not None:
+        last_row = k0 + block_k - 1 + window - 1 - off
+        band_hi = jnp.minimum(lax.div(jnp.maximum(last_row, -1) + block_q,
+                                      block_q), n_q)
+        hi = jnp.where(k0 < sinks, n_q, band_hi) if sinks else band_hi
+    # explicit int32 operands: `jnp.where` of two Python ints lowers to an
+    # i1 loop bound in Triton, which its verifier refuses
+    hi = lax.select(k0 < kv_len, jnp.int32(hi), jnp.int32(lo))
 
-    def _accum(rstart, rsub, cstart, csub, masked, dq_accum=False,
-               static_diag=False):
-        # one (q-row sub x kv-col sub) tile of this (q, kv) block pair;
-        # dk/dv/dq are additive so sub order is free
-        q = q_ref[0, 0, rstart : rstart + rsub]   # (sm_scale pre-folded)
-        do = do_ref[0, 0, rstart : rstart + rsub]
-        lse = lse_ref[0, 0, rstart : rstart + rsub]
-        delta = delta_ref[0, 0, rstart : rstart + rsub]
-        k = k_ref[0, 0, cstart : cstart + csub]   # [csub, d]
-        v = v_ref[0, 0, cstart : cstart + csub]   # [csub, d_v]
+    def q_body(t, carry, g):
+        dk, dv = carry
+        qs = pl.ds(t * block_q, block_q)
+        q = q_ref[g, qs, :]
+        do = do_ref[g, qs, :]
+        lse2 = lse_ref[g, qs]
+        delta = delta_ref[g, qs]
+        rows = t * block_q + lax.broadcasted_iota(jnp.int32, (block_q,), 0)
+        mask = _visible(rows + off, cols, kv_len, causal=causal,
+                        window=window, sinks=sinks)
+        mask = mask & (rows < q_len)[:, None]
+        s = _dot(q, k, trans_b=True) * scale
+        p = jnp.where(mask, jnp.exp2(s - lse2[:, None]), 0.0)
+        dv = dv + _dot(p.astype(do.dtype), do, trans_a=True)
+        dp = _dot(do, v, trans_b=True)
+        ds = p * (dp - delta[:, None])
+        dk = dk + _dot(ds.astype(q.dtype), q, trans_a=True)
+        return dk, dv
 
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(q.dtype),
-        )
-        if masked and static_diag:
-            # triangular path: this tile sits ON the diagonal of an
-            # ALIGNED square pair (row base == col base statically), so
-            # the causal mask is the program-id-free `j <= i` — a
-            # loop-invariant constant tensor Mosaic hoists out of the
-            # grid, vs the per-tile offset iota chain of the general path
-            cm = (
-                jax.lax.broadcasted_iota(jnp.int32, (rsub, csub), 1)
-                <= jax.lax.broadcasted_iota(jnp.int32, (rsub, csub), 0)
-            )
-            s = jnp.where(cm, s, NEG_INF)
-        elif masked:
-            col = kv_idx * block_k + cstart + jax.lax.broadcasted_iota(
-                jnp.int32, (rsub, csub), 1
-            )
-            row = (
-                q_idx * block_q + rstart + q_offset
-                + jax.lax.broadcasted_iota(jnp.int32, (rsub, csub), 0)
-            )
-            cm = col <= row
-            if window is not None:
-                wm = col > row - window
-                if sinks:
-                    wm = jnp.logical_or(wm, col < sinks)
-                cm = jnp.logical_and(cm, wm)
-            s = jnp.where(cm, s, NEG_INF)
-        # p = exp2(s - lse), both in the log2 domain (wrapper folds log2e
-        # into q and ALSO shifts lse by log2(log2e), so p carries the
-        # 1/log2e that ds owes — no per-tile scale multiply anywhere);
-        # padded q rows carry lse = +1e30 -> p = 0
-        p = jnp.exp2((s - lse).astype(v.dtype))
-        dv_scr[cstart : cstart + csub] = dv_scr[
-            cstart : cstart + csub
-        ] + jax.lax.dot_general(
-            p, do, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(v.dtype),
-        )
-        dp = jax.lax.dot_general(
-            do, v, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(v.dtype),
-        )
-        if ds_bf16:
-            # one rounding of (dp - delta) to the input dtype before the
-            # multiply: drops the p upcast + f32 multiply + downcast chain
-            ds = p * (dp - delta).astype(q.dtype)
-        else:
-            ds = (p.astype(jnp.float32) * (dp - delta)).astype(q.dtype)
-        dk_scr[cstart : cstart + csub] = dk_scr[
-            cstart : cstart + csub
-        ] + jax.lax.dot_general(
-            ds, q, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(q.dtype),
-        )
-        if fuse_dq:
-            # this tile's dq rows: ds @ k. ds carries 1/log2e (see the
-            # sm_scale note at the wrapper); the wrapper multiplies the
-            # summed partials by sm_scale * log2e.
-            # NT orientation against the PRE-TRANSPOSED kT tile: the
-            # natural ds @ k form contracts k's dim 0 ("NN"), which made
-            # Mosaic relayout the k tile per program — measured +0.5 ms
-            # on the 4K call (probe, round 4). Masked 2-D subs ACCUMULATE
-            # (several column subs feed the same rows, initialized by the
-            # program-start zero-store); unmasked whole tiles store.
-            dqv = jax.lax.dot_general(
-                ds, kt_ref[0, 0, :, cstart : cstart + csub],
-                (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=_precision(q.dtype),
-            ).astype(dq_ref.dtype)
-            if dq_accum:
-                dq_ref[0, 0, 0, rstart : rstart + rsub] = (
-                    dq_ref[0, 0, 0, rstart : rstart + rsub] + dqv
-                )
-            else:
-                dq_ref[0, 0, 0, rstart : rstart + rsub] = dqv
-
-    def _compute_masked_subs():
-        # 2-D sub-predicated masked path (round 4): the diagonal pair of a
-        # square (block_q == block_k) tiling is HALF dead, and no full
-        # q-row sub or kv-col sub of it is ever fully dead — only
-        # (row sub x col sub) TILES strictly above the diagonal are. At
-        # 4K/d128 the 16 diagonal pairs were ~25% of the executed MXU
-        # work; skipping their dead tiles is what the row-only subs
-        # (r3) could not do. Non-causal bwd measured 0.890x of roofline
-        # vs causal 0.606x before this — the gap was diagonal dead work,
-        # not the VPU chain (probe, docs/perf_journal.md r4).
-        dsub = block_q // diag_subs
-        csub_n = max(block_k // 512, 1) if causal else 1
-        cw = block_k // csub_n
-        for i in range(diag_subs):
-            rstart = i * dsub
-            row_first = q_idx * block_q + rstart + q_offset
-            row_last = row_first + (dsub - 1)
-            for c in range(csub_n):
-                cstart = c * cw
-                col_first = kv_idx * block_k + cstart
-                col_last = col_first + (cw - 1)
-                sub_live = jnp.asarray(row_last >= col_first)
-                if window is not None:
-                    dead_past = jnp.asarray(
-                        row_first > col_last + (window - 1)
-                    )
-                    if sinks:
-                        dead_past = jnp.logical_and(
-                            dead_past, jnp.asarray(col_first >= sinks)
-                        )
-                    sub_live = jnp.logical_and(
-                        sub_live, jnp.logical_not(dead_past)
-                    )
-                # (a split dispatching fully-live tiles through an
-                # UNMASKED instantiation was A/B'd: exactly neutral —
-                # Mosaic fuses the mask passes cheaply — and was dropped)
-
-                def _sub(rstart=rstart, cstart=cstart):
-                    _accum(rstart, dsub, cstart, cw, True, dq_accum=True)
-
-                pl.when(sub_live)(_sub)
-
-    def _compute_masked_tri():
-        # STATIC triangular split (round 5). Gated by the wrapper to the
-        # aligned-square case (causal, no window, q_offset == 0,
-        # block_q == block_k), where the only mask-crossing pair is the
-        # exact diagonal (q_idx == kv_idx): row sub r is FULLY live over
-        # cols [0, r*tsub) — one unmasked wide dot — and mask-crossed only
-        # on its [tsub, tsub] diagonal tile. Executed fraction drops from
-        # the 2-D tile path's 3/4 to (n+1)/2n, the masked VPU work (iota/
-        # compare/select) drops to the diagonal tiles alone, and every
-        # branch is static (no pl.when region entries).
-        tsub = block_q // diag_subs
-        for r in range(diag_subs):
-            rstart = r * tsub
-            if r:
-                _accum(rstart, tsub, 0, rstart, False, dq_accum=True)
-            _accum(rstart, tsub, rstart, tsub, True, dq_accum=True,
-                   static_diag=True)
-
-    if causal and tri:
-        masked_fn = _compute_masked_tri
-    elif causal and diag_subs > 1:
-        masked_fn = _compute_masked_subs
-    else:
-        masked_fn = lambda: _accum(  # noqa: E731
-            0, block_q, 0, block_k, True, dq_accum=True
-        )
-    if fuse_dq:
-        # every (j, t) partial block is summed by the wrapper — dead
-        # pairs and dead subs must read zero; live stores overwrite
-        dq_ref[0, 0, 0] = jnp.zeros(
-            dq_ref.shape[-2:], dq_ref.dtype
-        )
-    if causal:
-        pl.when(jnp.logical_and(live, crosses))(masked_fn)
-        pl.when(jnp.logical_and(live, jnp.logical_not(crosses)))(
-            lambda: _accum(0, block_q, 0, block_k, False)
-        )
-    else:
-        _accum(0, block_q, 0, block_k, False)
-
-    @pl.when(is_emit)
-    def _emit():
-        # q arrives sm_scale-pre-folded (q_scaled = scale*q): ds is w.r.t.
-        # the scaled scores, and ds^T @ q_scaled == scale * (ds^T @ q_raw)
-        # — exactly one sm_scale on dk, per the chain rule through
-        # s = scale * (q . k). p carries 1/log2e (the wrapper's lse shift),
-        # which is right for ds but a stray factor on dv = p^T @ do —
-        # multiplied back out here, once per kv block instead of once per
-        # score tile.
-        dk_ref[0, 0] = dk_scr[:].astype(dk_ref.dtype)
-        dv_ref[0, 0] = (dv_scr[:] * _LOG2E).astype(dv_ref.dtype)
+    carry = (
+        jnp.zeros((block_k, k.shape[-1]), jnp.float32),
+        jnp.zeros((block_k, v.shape[-1]), jnp.float32),
+    )
+    for g in range(group):
+        carry = lax.fori_loop(lo, hi, functools.partial(q_body, g=g), carry)
+    dk, dv = carry
+    dk_ref[...] = (dk * sm_scale).astype(dk_ref.dtype)
+    dv_ref[...] = dv.astype(dv_ref.dtype)
 
 
 def _bwd_dq_kernel(
-    q_ref, do_ref, lse_ref, delta_ref, k_ref, v_ref,
+    len_ref, off_ref, q_ref, do_ref, lse_ref, delta_ref, k_ref, v_ref,
     dq_ref,
-    dq_scr,
-    *,
-    n_kv: int,
-    causal: bool,
-    q_offset: int,
-    kv_len: int,
-    sm_scale: float,
-    block_q: int,
-    block_k: int,
-    window: int | None = None,
-    sinks: int = 0,
-    g_stack: int = 1,
-    diag_subs: int = 1,
+    *, causal, window, sinks, scale, sm_scale, block_q, block_k, q_len,
 ):
-    # g_stack: GQA group stacking (VERDICT r3 task 5) — the fwd's winning
-    # move applied to dq: one program computes the whole q-head group
-    # against ONE K/V stream (grid over KV heads), group-fold fewer KV
-    # HBM streams and fewer programs. dq is purely additive over KV
-    # blocks, so diag_subs sub-predication (skip fully-dead key
-    # sub-ranges of diagonal-crossing blocks) applies as in the fwd
-    # fixed-max path — the bwd recompute is always lse-centred, which is
-    # additive too.
-    q_idx = pl.program_id(2)
-    kv_idx = pl.program_id(3)
-    rows = g_stack * block_q
+    i = pl.program_id(0)
+    kv_len = len_ref[0]
+    rows = i * block_q + lax.broadcasted_iota(jnp.int32, (block_q,), 0)
+    row_ok = (rows < q_len)[:, None]
+    p_lo = i * block_q + off_ref[0]
+    pos = rows + off_ref[0]
+    q = q_ref[...]
+    do = do_ref[...]
+    lse2 = lse_ref[...]
+    delta = delta_ref[...]
 
-    @pl.when(kv_idx == 0)
-    def _init():
-        dq_scr[:] = jnp.zeros_like(dq_scr)
+    def body(j, dq):
+        sl = pl.ds(j * block_k, block_k)
+        k = k_ref[sl, :]
+        v = v_ref[sl, :]
+        cols = j * block_k + lax.broadcasted_iota(jnp.int32, (block_k,), 0)
+        mask = _visible(pos, cols, kv_len, causal=causal, window=window,
+                        sinks=sinks) & row_ok
+        s = _dot(q, k, trans_b=True) * scale
+        p = jnp.where(mask, jnp.exp2(s - lse2[:, None]), 0.0)
+        dp = _dot(do, v, trans_b=True)
+        ds = p * (dp - delta[:, None])
+        return dq + _dot(ds.astype(k.dtype), k)
 
-    def _row_iota(n_cols):
-        it = jax.lax.broadcasted_iota(jnp.int32, (rows, n_cols), 0)
-        return jax.lax.rem(it, block_q) if g_stack > 1 else it
-
-    def _tiles():
-        q = q_ref[0, 0]
-        do = do_ref[0, 0]
-        lse = lse_ref[0, 0]
-        delta = delta_ref[0, 0]
-        if g_stack > 1:
-            q = q.reshape(rows, q.shape[-1])
-            do = do.reshape(rows, do.shape[-1])
-            lse = lse.reshape(rows, 1)
-            delta = delta.reshape(rows, 1)
-        return q, do, lse, delta
-
-    need_tail = kv_len % block_k != 0
-    if causal:
-        live = kv_idx * block_k <= q_idx * block_q + q_offset + (block_q - 1)
-        crosses = (
-            kv_idx * block_k + (block_k - 1) > q_idx * block_q + q_offset
-        )
-        if window is not None:
-            in_band = (
-                kv_idx * block_k + (block_k - 1)
-                >= q_idx * block_q + q_offset - (window - 1)
-            )
-            if sinks:
-                in_band = jnp.logical_or(in_band, kv_idx * block_k < sinks)
-            live = jnp.logical_and(live, in_band)
-            crosses = jnp.logical_or(
-                crosses,
-                kv_idx * block_k
-                < q_idx * block_q + q_offset + (block_q - 1) - (window - 1),
-            )
-    else:
-        live = True
-        crosses = False
-
-    def _accum(q, do, lse, delta, k, v, start, dsub, masked):
-        s = jax.lax.dot_general(
-            q, k[start : start + dsub], (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(q.dtype),
-        )
-        if masked:
-            col = kv_idx * block_k + start + jax.lax.broadcasted_iota(
-                jnp.int32, (rows, dsub), 1
-            )
-            mask = col < kv_len if need_tail else None
-            if causal:
-                row = q_idx * block_q + q_offset + _row_iota(dsub)
-                cm = col <= row
-                if window is not None:
-                    wm = col > row - window
-                    if sinks:
-                        wm = jnp.logical_or(wm, col < sinks)
-                    cm = jnp.logical_and(cm, wm)
-                mask = cm if mask is None else jnp.logical_and(mask, cm)
-            s = jnp.where(mask, s, NEG_INF)
-        p = jnp.exp2((s - lse).astype(v.dtype))
-        dp = jax.lax.dot_general(
-            do, v[start : start + dsub], (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(v.dtype),
-        )
-        # p carries 1/log2e (wrapper lse shift); the sm_scale * log2e owed
-        # on dq rides the emit, not a per-tile multiply
-        ds = (p.astype(jnp.float32) * (dp - delta)).astype(q.dtype)
-        dq_scr[:] = dq_scr[:] + jax.lax.dot_general(
-            ds, k[start : start + dsub], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(q.dtype),
-        )
-
-    def _compute(masked: bool):
-        q, do, lse, delta = _tiles()
-        _accum(q, do, lse, delta, k_ref[0, 0], v_ref[0, 0], 0, block_k, masked)
-
-    def _compute_masked_subs():
-        q, do, lse, delta = _tiles()
-        k = k_ref[0, 0]
-        v = v_ref[0, 0]
-        dsub = block_k // diag_subs
-        row_first = q_idx * block_q + q_offset
-        row_last = row_first + (block_q - 1)
-        for i in range(diag_subs):
-            start = i * dsub
-            first_col = kv_idx * block_k + start
-            sub_live = None
-            if causal:
-                sub_live = jnp.asarray(first_col <= row_last)
-                if window is not None:
-                    dead_below = jnp.asarray(
-                        first_col + (dsub - 1) < row_first - (window - 1)
-                    )
-                    if sinks:
-                        dead_below = jnp.logical_and(
-                            dead_below, first_col >= sinks
-                        )
-                    sub_live = jnp.logical_and(
-                        sub_live, jnp.logical_not(dead_below)
-                    )
-            if need_tail:
-                t_live = jnp.asarray(first_col < kv_len)
-                sub_live = (
-                    t_live if sub_live is None
-                    else jnp.logical_and(sub_live, t_live)
-                )
-
-            def _sub(start=start):
-                _accum(q, do, lse, delta, k, v, start, dsub, True)
-
-            pl.when(sub_live)(_sub) if sub_live is not None else _sub()
-
-    masked_fn = (
-        _compute_masked_subs if diag_subs > 1 else (lambda: _compute(True))
+    lo0, hi0, lo1, hi1 = _kv_ranges(
+        p_lo, p_lo + block_q - 1, kv_len, block_k, causal=causal,
+        window=window, sinks=sinks,
     )
-    if causal or need_tail:
-        is_tail = (kv_idx == n_kv - 1) if need_tail else False
-        needs_mask = jnp.logical_or(
-            jnp.asarray(crosses), jnp.asarray(is_tail)
-        )
-        live_ = jnp.asarray(live)
-        pl.when(jnp.logical_and(live_, needs_mask))(masked_fn)
-        pl.when(jnp.logical_and(live_, jnp.logical_not(needs_mask)))(
-            lambda: _compute(False)
-        )
-    else:
-        _compute(False)
-
-    @pl.when(kv_idx == n_kv - 1)
-    def _emit():
-        dqv = (dq_scr[:] * (sm_scale * _LOG2E)).astype(dq_ref.dtype)
-        if g_stack > 1:
-            dq_ref[0, 0] = dqv.reshape(g_stack, block_q, dq_scr.shape[-1])
-        else:
-            dq_ref[0, 0] = dqv
+    dq = jnp.zeros((block_q, q.shape[-1]), jnp.float32)
+    if sinks and window is not None:
+        dq = lax.fori_loop(lo0, hi0, body, dq)
+    dq = lax.fori_loop(lo1, hi1, body, dq)
+    dq_ref[...] = (dq * sm_scale).astype(dq_ref.dtype)
 
 
-def _bwd_pallas(
-    res, g, causal, sm_scale, q_offset, block_q, block_k, interpret,
-    window=None, sinks=0, fuse_dq=None, ds_bf16=False, tri_subs=None,
-    chunk_kv=None,
-):
-    """FlashAttention-2 backward as two Pallas kernels. Returns (dq, dk, dv).
-
-    Reference analog: the fused forward's recompute discipline
-    (flashattn_forward_fused_5_4_2.cu:150-204) run in reverse with the saved
-    logsumexp replacing the online (m, l) state.
-    """
-    if interpret is None:
-        interpret = default_interpret()
+def _bwd(res, g, *, causal, sm_scale, q_offset, interpret, window, sinks,
+         block_q=None, block_k=None):
     q, k, v, out, lse = res
+    interpret = resolve_interpret(interpret)
     b, hq, n, d = q.shape
-    _, hkv, s_len, _ = k.shape
-    d_v = v.shape[-1]
+    hkv, s = k.shape[1], k.shape[2]
     group = hq // hkv
-
-    block_q, block_k = _auto_blocks(block_q, block_k, d)
-    block_q = min(block_q, max(n, 8))
-    block_k = min(block_k, max(s_len, 128))
-    pad_q = (-n) % block_q
-    pad_k = (-s_len) % block_k
-
-    gf = g
-    delta = jnp.sum(
-        out.astype(jnp.float32) * g.astype(jnp.float32), axis=-1, keepdims=True
-    )  # [b, hq, n, 1]
-    lse4 = lse[..., None]  # [b, hq, n, 1]
-    if pad_q:
-        q = jnp.pad(q, ((0, 0), (0, 0), (0, pad_q), (0, 0)))
-        gf = jnp.pad(gf, ((0, 0), (0, 0), (0, pad_q), (0, 0)))
-        delta = jnp.pad(delta, ((0, 0), (0, 0), (0, pad_q), (0, 0)))
-        # padded rows get lse = +BIG so exp(s - lse) == 0 (no NaN/garbage)
-        lse4 = jnp.pad(
-            lse4, ((0, 0), (0, 0), (0, pad_q), (0, 0)),
-            constant_values=_POS_BIG,
-        )
-    if pad_k:
-        k = jnp.pad(k, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-        v = jnp.pad(v, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-    # forward saved lse of the SCALED scores (natural log); recompute in the
-    # log2 domain like the forward: fold sm_scale * log2(e) into q and put
-    # lse into log2 as well, so p = exp2(s2 - lse2) == exp(s - lse) exactly.
-    # The extra + log2(log2e) shift makes the kernels' p carry the 1/log2e
-    # factor ds owes (round 5): ds = p * (dp - delta) with NO per-tile scale
-    # multiply; dv (the only p consumer that doesn't want the factor)
-    # multiplies it back out at emit, once per kv block.
-    q_scaled = (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
-    lse4 = lse4 * _LOG2E + 0.5287663729448977  # + log2(log2(e))
-
-    np_, sp = q.shape[2], k.shape[2]
-    n_q, n_kv = np_ // block_q, sp // block_k
-    n_inner = group * n_q
-
-    # ---- dk / dv (+ fused dq partials) ------------------------------------
-    # fuse_dq: one kernel executes all 5 useful matmuls per (q, kv) pair
-    # (s, dv, dp, dk, dq) instead of 7 across two kernels — removes the
-    # 5/7 recompute ceiling (docs/perf_journal.md r4). dq partials cost
-    # per-chunk HBM traffic and footprint (bf16); CHUNKING over kv-block
-    # groups of 8 (round 5, VERDICT r4 task 2) bounds the partials array
-    # at 8 * |q| regardless of seq — at 32K the unchunked array was 4 GB,
-    # chunked it is <= 1 GB transient and the fused form's +23% carries.
-    if fuse_dq is None:
-        fuse_dq = True
-
-    # masked-pair strategy: the STATIC triangular split (see
-    # _compute_masked_tri) applies when the only crossing pair is the
-    # aligned diagonal; otherwise the dynamic 2-D tile predication.
-    tri = (
-        causal and window is None and q_offset == 0
-        and block_q == block_k and tri_subs != 0
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    delta = jnp.sum(out.astype(jnp.float32) * g.astype(jnp.float32), axis=-1)
+    lse2 = lse * _LOG2E
+    qp, kp, vp, block_q, block_k = _prep(q, k, v, block_q, block_k)
+    np_, sp, dp = qp.shape[2], kp.shape[2], qp.shape[3]
+    gp = _pad_axis(_pad_axis(g.astype(q.dtype), 2, np_), 3, vp.shape[3])
+    lse2 = _pad_axis(lse2, 2, np_)
+    delta = _pad_axis(delta, 2, np_)
+    lens = jnp.full((b,), s, jnp.int32)
+    offs = jnp.full((b,), q_offset, jnp.int32)
+    common = dict(
+        causal=causal, window=window, sinks=sinks,
+        scale=float(sm_scale) * _LOG2E, sm_scale=float(sm_scale),
+        block_q=block_q, block_k=block_k, q_len=n,
     )
-    if tri_subs is None:
-        # 512-row triangular rungs at the (1024, 1024) blocks: measured
-        # 139.9 TF vs 136.3 (tri_subs=4) and 134.9 (r4 2-D tiles) at
-        # 4K/d128 — the finer split's lower dead fraction (5/8 vs 3/4)
-        # loses more to MXU pipeline fill on 256-row dots than it saves
-        tri_subs = 2
-    tri_subs = max(min(tri_subs, block_q // 8), 1)
-    while block_q % tri_subs:
-        tri_subs -= 1
+    row = lambda *a: (a[-1],)  # noqa: E731
 
-    def _run_dkdv(kc, vc, nc, qs, gfs, lses, deltas, q_off, fuse):
-        # one dkdv launch over kv blocks [of some chunk]; chunk-local
-        # coordinates: kc/vc are the chunk's kv slice, qs/... the q slice
-        # from the first causally-live q block, q_off the chunk-local
-        # offset (q row 0 position relative to kc row 0)
-        n_q_l = qs.shape[2] // block_q
-        n_inner_l = group * n_q_l
-
-        def qmap(bb, h, j, t):
-            i = t % n_q_l
-            if causal and window is None:
-                # dead-program DMA elision (round 4, the fwd's r1 lesson
-                # applied to the bwd): q blocks strictly above kv block j
-                # are compute-skipped but still streamed q/do/lse/delta
-                # unless their index aliases a live block — clamp i up to
-                # the first live q block so consecutive dead steps elide
-                # their copies. Live programs are never remapped (max only
-                # moves dead i). (A full triangular grid via
-                # scalar-prefetch index tables was built and measured
-                # IDENTICAL — 134.7 vs 134.9 TF at 4K — the clamp already
-                # removes all the dead cost; reverted for simplicity.)
-                i_min = jnp.clip(
-                    (j * block_k - q_off) // block_q, 0, n_q_l - 1
-                )
-                i = jnp.maximum(i, i_min)
-            return (bb, h * group + t // n_q_l, i, 0)
-
-        # tri's static-alignment premise (crossing pair == exact diagonal)
-        # needs the CHUNK-local offset to be 0 too (kv longer than q can
-        # clamp r0 below c0)
-        tri_l = tri and q_off == 0
-        dkdv_kernel = functools.partial(
-            _bwd_dkdv_kernel,
-            n_inner=n_inner_l,
-            n_q=n_q_l,
-            causal=causal,
-            q_offset=q_off,
-            sm_scale=1.0,  # unused: the scale rides the wrapper lse shift
-            block_q=block_q,
-            block_k=block_k,
-            window=window,
-            sinks=sinks,
-            # sub-predication on diagonal-crossing pairs (causal only)
-            diag_subs=(
-                tri_subs if tri_l
-                else (max(block_q // 512, 1) if causal else 1)
-            ),
-            fuse_dq=fuse,
-            ds_bf16=ds_bf16 and q.dtype == jnp.bfloat16,
-            tri=tri_l,
-        )
-        out_specs = [
-            pl.BlockSpec(
-                (1, 1, block_k, d), lambda bb, h, j, t: (bb, h, j, 0)
-            ),
-            pl.BlockSpec(
-                (1, 1, block_k, d_v), lambda bb, h, j, t: (bb, h, j, 0)
-            ),
-        ]
-        out_shape = [
-            jax.ShapeDtypeStruct((b, hkv, nc * block_k, d), k.dtype),
-            jax.ShapeDtypeStruct((b, hkv, nc * block_k, d_v), v.dtype),
-        ]
-        in_specs_bwd = [
-            pl.BlockSpec((1, 1, block_q, d), qmap),
-            pl.BlockSpec((1, 1, block_q, d_v), qmap),
-            pl.BlockSpec((1, 1, block_q, 1), qmap),
-            pl.BlockSpec((1, 1, block_q, 1), qmap),
-            pl.BlockSpec(
-                (1, 1, block_k, d), lambda bb, h, j, t: (bb, h, j, 0)
-            ),
-            pl.BlockSpec(
-                (1, 1, block_k, d_v), lambda bb, h, j, t: (bb, h, j, 0)
-            ),
-        ]
-        operands_bwd = [qs, gfs, lses, deltas, kc, vc]
-        if fuse:
-            # kT [b, hkv, d, nc*block_k]: one XLA transpose of the K chunk
-            # per call so the dq dot runs NT against [d, block_k] tiles
-            # (see kernel note)
-            in_specs_bwd.append(pl.BlockSpec(
-                (1, 1, d, block_k), lambda bb, h, j, t: (bb, h, 0, j)
-            ))
-            operands_bwd.append(jnp.swapaxes(kc, -1, -2))
-            out_specs.append(pl.BlockSpec(
-                (1, 1, 1, block_q, d),
-                lambda bb, h, j, t: (
-                    j, bb, h * group + t // n_q_l, t % n_q_l, 0
-                ),
-            ))
-            out_shape.append(
-                jax.ShapeDtypeStruct((nc, b, hq, qs.shape[2], d), q.dtype)
-            )
-        return pl.pallas_call(
-            dkdv_kernel,
-            grid=(b, hkv, nc, n_inner_l),
-            in_specs=in_specs_bwd,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            scratch_shapes=[
-                pltpu.VMEM((block_k, d), jnp.float32),
-                pltpu.VMEM((block_k, d_v), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel", "parallel",
-                                     "arbitrary"),
-            ),
-            interpret=interpret,
-        )(*operands_bwd)
-
-    if fuse_dq:
-        # kv blocks per chunk: bounds the dq partials at CH * |q|.
-        # Measured at 16K (exactly 16 blocks): one 16-block call reads
-        # 145.8 TF vs 141.5 split 2x8 — the second pallas_call + XLA
-        # accumulate costs ~2% — so the threshold keeps <=16-block
-        # problems in ONE call (a [16, b, hq, n, d] bf16 partials array,
-        # <= 2.1 GB at 16K) and chunks by 8 beyond (32K at 4x8 measured
-        # 0.742, up from the two-kernel form's 0.604).
-        CH = (16 if n_kv <= 16 else 8) if chunk_kv is None else chunk_kv
-        dks, dvs = [], []
-        dq32 = None
-        for j0 in range(0, n_kv, CH):
-            nc = min(CH, n_kv - j0)
-            c0 = j0 * block_k
-            # first causally-live q block for this chunk's kv columns
-            r0 = (
-                min(max(0, (c0 - q_offset) // block_q), n_q - 1) * block_q
-                if causal else 0
-            )
-            dk_c, dv_c, parts = _run_dkdv(
-                k[:, :, c0 : c0 + nc * block_k],
-                v[:, :, c0 : c0 + nc * block_k],
-                nc,
-                q_scaled[:, :, r0:], gf[:, :, r0:],
-                lse4[:, :, r0:], delta[:, :, r0:],
-                q_offset + r0 - c0,
-                True,
-            )
-            dks.append(dk_c)
-            dvs.append(dv_c)
-            # sum this chunk's per-kv-block partials into the f32 dq
-            # accumulator; ds carried 1/log2e and q carried sm_scale*log2e,
-            # so exactly sm_scale*log2e is still owed on dq at the end
-            add = parts.astype(jnp.float32).sum(axis=0)
-            if dq32 is None and r0 == 0:
-                dq32 = add
-            else:
-                if dq32 is None:
-                    dq32 = jnp.zeros((b, hq, np_, d), jnp.float32)
-                dq32 = dq32.at[:, :, r0:].add(add)
-        dk = jnp.concatenate(dks, axis=2) if len(dks) > 1 else dks[0]
-        dv = jnp.concatenate(dvs, axis=2) if len(dvs) > 1 else dvs[0]
-        dq = (dq32 * (sm_scale * _LOG2E)).astype(q.dtype)
-        return dq[:, :, :n], dk[:, :, :s_len], dv[:, :, :s_len]
-
-    dk, dv = _run_dkdv(k, v, n_kv, q_scaled, gf, lse4, delta, q_offset,
-                       False)
-
-    # ---- dq ---------------------------------------------------------------
-    # GQA group stacking (fwd's winning move, r3): grid over KV heads with
-    # the q-head group stacked into the row axis — each K/V block is
-    # streamed once per group instead of once per q head, and programs
-    # drop by `group`. The stacked q block is shrunk so the f32 score
-    # tile ([group*bq_dq, block_k]) stays within the 4 MB discipline.
-    g_stack = group if group > 1 else 1
-    bq_dq = block_q
-    bk_dq = block_k
-    while g_stack * bq_dq * bk_dq * 4 > (4 << 20) and bq_dq > 128:
-        bq_dq //= 2
-    # mirror the forward VMEM discipline (advisor r3): once bq_dq bottoms
-    # out at 128 (group >= 16), keep halving the KV block — a 16-stacked
-    # [2048, 1024] f32 score tile is 8 MB, the size class the fwd path
-    # measured OOM
-    while g_stack * bq_dq * bk_dq * 4 > (4 << 20) and bk_dq > 256:
-        bk_dq //= 2
-    n_kv_dq = sp // bk_dq
-    n_q_dq = np_ // bq_dq
-    rows_dq = g_stack * bq_dq
-    dq_kernel = functools.partial(
-        _bwd_dq_kernel,
-        n_kv=n_kv_dq,
-        causal=causal,
-        q_offset=q_offset,
-        kv_len=s_len,
-        sm_scale=sm_scale,
-        block_q=bq_dq,
-        block_k=bk_dq,
-        window=window,
-        sinks=sinks,
-        g_stack=g_stack,
-        diag_subs=max(bk_dq // 512, 1) if causal else 1,
-    )
-    if g_stack > 1:
-        q_in = q_scaled.reshape(b, hkv, group, np_, d)
-        gf_in = gf.reshape(b, hkv, group, np_, d_v)
-        lse_in = lse4.reshape(b, hkv, group, np_, 1)
-        delta_in = delta.reshape(b, hkv, group, np_, 1)
-        stk = lambda blk: pl.BlockSpec(  # noqa: E731
-            (1, 1, group, bq_dq, blk), lambda bb, h, i, j: (bb, h, 0, i, 0)
-        )
-        in_specs = [
-            stk(d), stk(d_v), stk(1), stk(1),
-            pl.BlockSpec(
-                (1, 1, bk_dq, d), lambda bb, h, i, j: (bb, h, j, 0)
-            ),
-            pl.BlockSpec(
-                (1, 1, bk_dq, d_v), lambda bb, h, i, j: (bb, h, j, 0)
-            ),
-        ]
-        out_specs = pl.BlockSpec(
-            (1, 1, group, bq_dq, d), lambda bb, h, i, j: (bb, h, 0, i, 0)
-        )
-        out_shape = jax.ShapeDtypeStruct((b, hkv, group, np_, d), q.dtype)
-        grid = (b, hkv, n_q_dq, n_kv_dq)
-    else:
-        q_in, gf_in, lse_in, delta_in = q_scaled, gf, lse4, delta
-        in_specs = [
-            pl.BlockSpec((1, 1, bq_dq, d), lambda bb, h, i, j: (bb, h, i, 0)),
-            pl.BlockSpec(
-                (1, 1, bq_dq, d_v), lambda bb, h, i, j: (bb, h, i, 0)
-            ),
-            pl.BlockSpec((1, 1, bq_dq, 1), lambda bb, h, i, j: (bb, h, i, 0)),
-            pl.BlockSpec((1, 1, bq_dq, 1), lambda bb, h, i, j: (bb, h, i, 0)),
-            pl.BlockSpec(
-                (1, 1, bk_dq, d), lambda bb, h, i, j: (bb, h // group, j, 0)
-            ),
-            pl.BlockSpec(
-                (1, 1, bk_dq, d_v), lambda bb, h, i, j: (bb, h // group, j, 0)
-            ),
-        ]
-        out_specs = pl.BlockSpec(
-            (1, 1, bq_dq, d), lambda bb, h, i, j: (bb, h, i, 0)
-        )
-        out_shape = jax.ShapeDtypeStruct((b, hq, np_, d), q.dtype)
-        grid = (b, hq, n_q_dq, n_kv_dq)
-    dq = pl.pallas_call(
-        dq_kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((rows_dq, d), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-        ),
+    # dk/dv: one program per (KV tile, KV head, batch); the GQA group's q
+    # heads are one leading axis of the q-side operands
+    qg = lambda j, h, bb: (bb, h, 0, 0, 0)  # noqa: E731
+    sg = lambda j, h, bb: (bb, h, 0, 0)  # noqa: E731
+    kvt = lambda j, h, bb: (bb, h, j, 0)  # noqa: E731
+    kvf = lambda j, h, bb: (bb, h, 0, 0)  # noqa: E731
+    dk, dv = pl.pallas_call(
+        functools.partial(_bwd_dkdv_kernel, group=group, **common),
+        grid=(sp // block_k, hkv, b),
+        in_specs=[
+            pl.BlockSpec((1,), row),
+            pl.BlockSpec((1,), row),
+            pl.BlockSpec((None, None, group, np_, dp), qg),
+            pl.BlockSpec((None, None, group, np_, gp.shape[3]), qg),
+            pl.BlockSpec((None, None, group, np_), sg),
+            pl.BlockSpec((None, None, group, np_), sg),
+            pl.BlockSpec((None, None, sp, dp), kvf),
+            pl.BlockSpec((None, None, sp, vp.shape[3]), kvf),
+        ],
+        out_specs=[
+            pl.BlockSpec((None, None, block_k, dp), kvt),
+            pl.BlockSpec((None, None, block_k, vp.shape[3]), kvt),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct(kp.shape, k.dtype),
+            jax.ShapeDtypeStruct(vp.shape, v.dtype),
+        ],
+        compiler_params=_COMPILER_PARAMS,
+        backend="triton",
         interpret=interpret,
-    )(q_in, gf_in, lse_in, delta_in, k, v)
-    if g_stack > 1:
-        dq = dq.reshape(b, hq, np_, d)
+        name="flash_bwd_dkdv",
+    )(
+        lens, offs,
+        qp.reshape(b, hkv, group, np_, dp),
+        gp.reshape(b, hkv, group, np_, gp.shape[3]),
+        lse2.reshape(b, hkv, group, np_),
+        delta.reshape(b, hkv, group, np_),
+        kp, vp,
+    )
 
-    return dq[:, :, :n], dk[:, :, :s_len], dv[:, :, :s_len]
+    # dq: one program per (q tile, q head, batch), like the forward
+    kv = lambda i, h, bb: (bb, h // group, 0, 0)  # noqa: E731
+    qt = lambda i, h, bb: (bb, h, i, 0)  # noqa: E731
+    st = lambda i, h, bb: (bb, h, i)  # noqa: E731
+    dq = pl.pallas_call(
+        functools.partial(_bwd_dq_kernel, **common),
+        grid=(np_ // block_q, hq, b),
+        in_specs=[
+            pl.BlockSpec((1,), row),
+            pl.BlockSpec((1,), row),
+            pl.BlockSpec((None, None, block_q, dp), qt),
+            pl.BlockSpec((None, None, block_q, gp.shape[3]), qt),
+            pl.BlockSpec((None, None, block_q), st),
+            pl.BlockSpec((None, None, block_q), st),
+            pl.BlockSpec((None, None, sp, dp), kv),
+            pl.BlockSpec((None, None, sp, vp.shape[3]), kv),
+        ],
+        out_specs=pl.BlockSpec((None, None, block_q, dp), qt),
+        out_shape=jax.ShapeDtypeStruct(qp.shape, q.dtype),
+        compiler_params=_COMPILER_PARAMS,
+        backend="triton",
+        interpret=interpret,
+        name="flash_bwd_dq",
+    )(lens, offs, qp, gp, lse2, delta, kp, vp)
+    return dq[:, :, :n, :d], dk[:, :, :s, :d], dv[:, :, :s, :v.shape[-1]]
 
 
 # ---------------------------------------------------------------------------
-# Blockwise backward (FlashAttention-2 recompute) in plain JAX
+# Differentiable entry point and the choice of implementation
 # ---------------------------------------------------------------------------
 
-def _bwd_reference(res, g, causal, sm_scale, q_offset, block_k):
-    q, k, v, out, lse = res
-    b, hq, n, d = q.shape
-    hkv = k.shape[1]
-    group = hq // hkv
-    kr = jnp.repeat(k, group, axis=1)
-    vr = jnp.repeat(v, group, axis=1)
-
-    qf = q.astype(jnp.float32)
-    gf = g.astype(jnp.float32)
-    delta = jnp.sum(out.astype(jnp.float32) * gf, axis=-1)  # [b,hq,n]
-
-    s_len = k.shape[2]
-    pad = (-s_len) % block_k
-    if pad:
-        kr = jnp.pad(kr, ((0, 0), (0, 0), (0, pad), (0, 0)))
-        vr = jnp.pad(vr, ((0, 0), (0, 0), (0, pad), (0, 0)))
-    n_blocks = kr.shape[2] // block_k
-    k_blocks = jnp.moveaxis(
-        kr.reshape(b, hq, n_blocks, block_k, d), 2, 0
-    ).astype(jnp.float32)
-    v_blocks = jnp.moveaxis(
-        vr.reshape(b, hq, n_blocks, block_k, -1), 2, 0
-    ).astype(jnp.float32)
-
-    row = jnp.arange(n)[:, None] + q_offset
-
-    def step(dq, inputs):
-        j, kb, vb = inputs
-        s = jnp.einsum("bhnd,bhkd->bhnk", qf, kb) * sm_scale
-        col = j * block_k + jnp.arange(block_k)[None, :]
-        mask = col < s_len
-        if causal:
-            mask = jnp.logical_and(mask, col <= row)
-        p = jnp.where(mask, jnp.exp(s - lse[..., None]), 0.0)
-        dv = jnp.einsum("bhnk,bhnd->bhkd", p, gf)
-        dp = jnp.einsum("bhnd,bhkd->bhnk", gf, vb)
-        ds = p * (dp - delta[..., None]) * sm_scale
-        dq = dq + jnp.einsum("bhnk,bhkd->bhnd", ds, kb)
-        dk = jnp.einsum("bhnk,bhnd->bhkd", ds, qf)
-        return dq, (dk, dv)
-
-    dq0 = jnp.zeros_like(qf)
-    dq, (dk_blocks, dv_blocks) = jax.lax.scan(
-        step, dq0, (jnp.arange(n_blocks), k_blocks, v_blocks)
-    )
-    dk = jnp.moveaxis(dk_blocks, 0, 2).reshape(b, hq, -1, d)[:, :, :s_len]
-    dv = jnp.moveaxis(dv_blocks, 0, 2).reshape(b, hq, -1, v.shape[-1])[:, :, :s_len]
-    # fold GQA groups back onto the KV heads
-    dk = dk.reshape(b, hkv, group, s_len, d).sum(axis=2)
-    dv = dv.reshape(b, hkv, group, s_len, v.shape[-1]).sum(axis=2)
-    return dq.astype(q.dtype), dk.astype(k.dtype), dv.astype(v.dtype)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6, 7, 8))
+def _flash_attention(q, k, v, causal, sm_scale, q_offset, interpret, window,
+                     sinks):
+    return _flash_attention_fwd(
+        q, k, v, causal, sm_scale, q_offset, interpret, window, sinks,
+    )[0]
 
 
-def _fwd_select(
-    q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret, num_sub,
-    stable, window, sinks, stack_group, k_scale=None, v_scale=None,
-    pack_heads=None, k_max=None,
-):
-    """Forward dispatch on the softmax discipline.
-
-    stable=True / False / "auto" all route to _fwd; "auto" selects the
-    HYBRID kernel there (per-q-block fast/stable predication on an SMEM
-    Cauchy-Schwarz score bound — see _fwd). Two earlier "auto" designs
-    were measured and rejected at 4K/d128 (docs/perf_journal.md round 3):
-    an in-kernel overflow flag + lax.cond fallback (-16%: guard output
-    stream + the false branch's pass-through copy) and a whole-call
-    norm-bound precheck + lax.cond (-10%: conditional plumbing). The
-    in-kernel per-block dispatch costs one fused norm pass and no extra
-    dispatches.
-    """
-    return _fwd(
-        q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret,
-        num_sub, stable=stable, window=window, sinks=sinks,
-        stack_group=stack_group, k_scale=k_scale, v_scale=v_scale,
-        pack_heads=pack_heads, k_max=k_max,
-    )
-
-
-@functools.partial(
-    jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
-)
-def _flash_attention(
-    q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret, num_sub,
-    stable, window, sinks, stack_group, pack_heads,
-):
-    out, _ = _fwd_select(
-        q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret,
-        num_sub, stable, window, sinks, stack_group, pack_heads=pack_heads,
-    )
-    return out
-
-
-def _flash_attention_fwd(
-    q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret, num_sub,
-    stable, window, sinks, stack_group, pack_heads,
-):
-    out, lse = _fwd_select(
-        q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret,
-        num_sub, stable, window, sinks, stack_group, pack_heads=pack_heads,
+def _flash_attention_fwd(q, k, v, causal, sm_scale, q_offset, interpret,
+                         window, sinks):
+    b, s = q.shape[0], k.shape[2]
+    out, lse = _fwd(
+        q, k, v, jnp.full((b,), s, jnp.int32),
+        jnp.full((b,), q_offset, jnp.int32),
+        causal=causal, sm_scale=sm_scale, interpret=interpret, window=window,
+        sinks=sinks,
     )
     return out, (q, k, v, out, lse)
 
 
-def _flash_attention_bwd(
-    causal, sm_scale, q_offset, block_q, block_k, interpret, num_sub, stable,
-    window, sinks, stack_group, pack_heads, res, g,
-):
-    # the backward recompute is always max-stable (it subtracts the saved
-    # lse, which bounds the exponent), so `stable` only shapes the forward
-    if sm_scale is None:
-        sm_scale = 1.0 / (res[0].shape[-1] ** 0.5)
-    return _bwd_pallas(
-        res, g, causal, sm_scale, q_offset, block_q, block_k, interpret,
-        window=window, sinks=sinks,
+def _flash_attention_bwd(causal, sm_scale, q_offset, interpret, window, sinks,
+                         res, g):
+    return _bwd(
+        res, g, causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+        interpret=interpret, window=window, sinks=sinks,
     )
 
 
 _flash_attention.defvjp(_flash_attention_fwd, _flash_attention_bwd)
 
 
-@functools.partial(
-    jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
-)
-def _flash_attention_km(
-    q, k, v, k_max, causal, sm_scale, q_offset, block_q, block_k, interpret,
-    num_sub, stable, window, sinks, stack_group, pack_heads,
-):
-    # variant of _flash_attention with a caller-cached max||k|| scalar (the
-    # k half of the hybrid score bound — see _fwd's k_max); k_max is a
-    # traced operand with zero cotangent (a sound bound needs no gradient)
-    out, _ = _fwd_select(
-        q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret,
-        num_sub, stable, window, sinks, stack_group, pack_heads=pack_heads,
-        k_max=k_max,
+def select_impl(
+    q_dtype, n: int, s: int, d: int, *, causal: bool, q_offset: int,
+    window: int | None, sinks: int, interpret, platform: str,
+) -> str:
+    """Which implementation `flash_attention` runs by default: "cudnn" or
+    "pallas".
+
+    cuDNN's fused attention (a library kernel, through
+    `jax.nn.dot_product_attention`) takes the calls it covers on a GPU:
+    16-bit inputs, full or causal attention from position 0 over equal
+    lengths, an optional sliding window, no sinks, head dim a multiple of 8
+    up to 128. Everything else (an offset chunk, sinks, f32 or interpret
+    mode) runs the Pallas kernel.
+    """
+    if platform != "gpu" or interpret:
+        return "pallas"
+    if jnp.dtype(q_dtype) not in (jnp.dtype(jnp.bfloat16),
+                                  jnp.dtype(jnp.float16)):
+        return "pallas"
+    if q_offset or sinks or d % 8 or d > 128:
+        return "pallas"
+    if causal and n != s:
+        return "pallas"
+    return "cudnn"
+
+
+def _cudnn_attention(q, k, v, *, causal, sm_scale, window):
+    """cuDNN fused attention on [B, H, N, D] operands (it takes [B, N, H, D])."""
+    t = lambda x: jnp.swapaxes(x, 1, 2)  # noqa: E731
+    out = jax.nn.dot_product_attention(
+        t(q), t(k), t(v), scale=sm_scale, is_causal=causal,
+        local_window_size=None if window is None else (window - 1, 0),
+        implementation="cudnn",
     )
-    return out
-
-
-def _flash_attention_km_fwd(
-    q, k, v, k_max, causal, sm_scale, q_offset, block_q, block_k, interpret,
-    num_sub, stable, window, sinks, stack_group, pack_heads,
-):
-    out, lse = _fwd_select(
-        q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret,
-        num_sub, stable, window, sinks, stack_group, pack_heads=pack_heads,
-        k_max=k_max,
-    )
-    return out, (q, k, v, out, lse)
-
-
-def _flash_attention_km_bwd(
-    causal, sm_scale, q_offset, block_q, block_k, interpret, num_sub, stable,
-    window, sinks, stack_group, pack_heads, res, g,
-):
-    if sm_scale is None:
-        sm_scale = 1.0 / (res[0].shape[-1] ** 0.5)
-    dq, dk, dv = _bwd_pallas(
-        res, g, causal, sm_scale, q_offset, block_q, block_k, interpret,
-        window=window, sinks=sinks,
-    )
-    return dq, dk, dv, jnp.zeros((), jnp.float32)
-
-
-_flash_attention_km.defvjp(_flash_attention_km_fwd, _flash_attention_km_bwd)
-
-
-def k_max_norm(k: jax.Array, k_scale: jax.Array | None = None) -> jax.Array:
-    """max_t ||k_t|| over a K cache — the cacheable half of stable="auto"'s
-    per-q-block score bound (pass to flash_attention(k_max=...)).
-
-    A property of K alone, cacheable exactly like quantization scales: a
-    serving stack maintains it incrementally alongside the KV cache
-    (monotone under append: new_max = max(old_max, ||k_new||)), and a
-    training/prefill stack computes it once per (K, layer). Any value
-    >= the true max is sound (the bound only ever gets more conservative).
-    For an 8-bit cache pass the per-token scales so the bound covers the
-    dequantized keys."""
-    kn2 = jnp.sum(jnp.square(k.astype(jnp.float32)), axis=-1)
-    if k_scale is not None:
-        kn2 = kn2 * jnp.square(k_scale.astype(jnp.float32)[..., 0])
-    return jnp.sqrt(kn2.max()).reshape(())
-
-
-# KV sub-tiling (num_sub > 1) was built as the MXU/VPU-overlap lever, but
-# measured consistently SLOWER on TPU v5e (Mosaic doesn't interleave the
-# sub-chains; the extra per-sub rescale passes just add VPU work) — keep 1.
-DEFAULT_NUM_SUB = 1
+    return t(out)
 
 
 def flash_attention(
@@ -2912,140 +552,185 @@ def flash_attention(
     causal: bool = False,
     sm_scale: float | None = None,
     q_offset: int = 0,
-    block_q: int | None = DEFAULT_BLOCK_Q,
-    block_k: int | None = DEFAULT_BLOCK_K,
     interpret: bool | None = None,
-    num_sub: int = DEFAULT_NUM_SUB,
-    stable: bool = True,
     window: int | None = None,
     sinks: int = 0,
-    stack_group: bool | None = None,
-    pack_heads: bool | None = None,
-    k_max: jax.Array | float | None = None,
+    implementation: str | None = None,
 ) -> jax.Array:
-    """Fused multi-head / grouped-query FlashAttention forward.
+    """Fused multi-head / grouped-query attention; differentiable.
 
     Args:
       q: [batch, q_heads, q_len, head_dim]
       k, v: [batch, kv_heads, kv_len, head_dim]; q_heads % kv_heads == 0.
-      causal: apply causal mask; query i sees key j iff j <= i + q_offset.
-      q_offset: static position offset of the query block within the KV
-        sequence (for chunked prefill).
-      window: sliding-window size (requires causal): query i attends its
-        `window` most recent keys, j in (i + q_offset - window, i + q_offset].
-        KV blocks wholly outside the band are skipped at the grid level, so
-        cost is O(N * window); forward AND backward honor the band.
-      sinks: with `window`, additionally keep the first `sinks` keys visible
-        to every query (StreamingLLM attention sinks) — the long-context
-        serving recipe that preserves quality when the window slides past
-        the prompt head.
-      sm_scale: score scale, default 1/sqrt(head_dim).
-      num_sub: KV sub-tiles per block; >1 interleaves the MXU QK/PV dots
-        with the VPU softmax chain (measured ~MXU/VPU overlap lever).
-      stable: True = online max-tracked softmax (safe for any input).
-        False = fixed-max exp2 (FlashDecoding++-style): drops the max
-        reduce and the (m, l, acc) rescale passes — the kernel's measured
-        VPU bottleneck — at the cost of requiring bounded logits:
-        |score * sm_scale| < ~80 (exp2 argument within bf16/f32 range;
-        p overflows above ~2^127). "auto" = fixed-max made unconditionally
-        correct: a Cauchy-Schwarz norm bound on the scores (O(N*d), one
-        extra pass over k) PROVES the range contract before dispatch and
-        a lax.cond falls back to the online kernel when the proof fails —
-        fixed-max throughput on in-contract inputs, never a wrong answer
-        (see _fwd_select). The backward pass is unaffected (it re-centers
-        on the saved lse).
-      stack_group: stack the GQA group's q-heads into one q tile so a
-        single program streams each K/V block once for the whole group
-        (grid over KV heads) — group-fold fewer KV HBM bytes and more MXU
-        rows per program. Default (None) = on whenever q_heads > kv_heads.
-      k_max: optional caller-cached max_t ||k_t|| (see k_max_norm) for
-        stable="auto": skips the per-call k-norm pass. A property of K
-        alone — maintain it incrementally alongside a KV cache or compute
-        once per (K, layer); any over-estimate is sound. Ignored unless
-        stable="auto".
+      causal: query i sees key j iff j <= i + q_offset.
+      q_offset: static position of query 0 within the KV sequence (chunked
+        prefill).
+      window: sliding window (needs causal): query i attends keys
+        j in (i + q_offset - window, i + q_offset]; forward and backward
+        skip the tiles outside the band.
+      sinks: with `window`, the first `sinks` keys stay visible to every
+        query (StreamingLLM attention sinks).
+      interpret: run the Pallas kernel in the interpreter (tests).
+      implementation: "pallas" or "cudnn"; None lets `select_impl` choose
+        from the call's properties.
 
-    Returns [batch, q_heads, q_len, head_dim_v]; differentiable.
+    Returns [batch, q_heads, q_len, head_dim_v] in q.dtype.
     """
-    if k_max is not None and stable == "auto":
-        return _flash_attention_km(
-            q, k, v, jnp.asarray(k_max, jnp.float32).reshape(()),
-            causal, sm_scale, q_offset, block_q, block_k, interpret,
-            num_sub, stable, window, sinks, stack_group, pack_heads,
-        )
+    b, hq, n, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    impl = implementation or select_impl(
+        q.dtype, n, k.shape[2], d, causal=causal, q_offset=q_offset,
+        window=window, sinks=sinks, interpret=interpret,
+        platform=jax.default_backend(),
+    )
+    if impl == "cudnn":
+        return _cudnn_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                window=window)
     return _flash_attention(
-        q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret,
-        num_sub, stable, window, sinks, stack_group, pack_heads,
+        q, k, v, causal, sm_scale, q_offset, interpret, window, sinks,
     )
 
 
 def flash_attention_with_lse(
-    q, k, v, *, causal=False, sm_scale=None, q_offset=0,
-    block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K, interpret=None,
-    num_sub=DEFAULT_NUM_SUB, stable=True, window=None, sinks=0,
-    pack_heads=None,
+    q, k, v, *, causal=False, sm_scale=None, q_offset=0, interpret=None,
+    window=None, sinks=0,
 ):
-    """Forward that also returns logsumexp [b, hq, n] — the (m, l) carry the
-    ring/context-parallel layer merges across devices (non-differentiable)."""
-    return _fwd_select(
-        q, k, v, causal, sm_scale, q_offset, block_q, block_k, interpret,
-        num_sub, stable, window, sinks, None, pack_heads=pack_heads,
+    """Forward that also returns logsumexp [b, hq, n] (natural log) — the
+    carry the ring/context-parallel layer merges across devices
+    (non-differentiable)."""
+    b, s = q.shape[0], k.shape[2]
+    return _fwd(
+        q, k, v, jnp.full((b,), s, jnp.int32),
+        jnp.full((b,), q_offset, jnp.int32),
+        causal=causal, sm_scale=sm_scale, interpret=interpret, window=window,
+        sinks=sinks,
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "causal", "sm_scale", "q_offset", "block_q", "block_k", "interpret",
-        "stable", "window", "sinks",
-    ),
-)
+_STATIC = ("causal", "sm_scale", "q_offset", "interpret", "window", "sinks")
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def flash_attention_kv_quant(
-    q: jax.Array,
-    k_q: jax.Array,
-    k_scale: jax.Array,
-    v_q: jax.Array,
-    v_scale: jax.Array,
-    *,
-    causal: bool = False,
-    sm_scale: float | None = None,
-    q_offset: int = 0,
-    block_q: int | None = DEFAULT_BLOCK_Q,
-    block_k: int | None = DEFAULT_BLOCK_K,
-    interpret: bool | None = None,
-    stable: bool = True,
-    window: int | None = None,
-    sinks: int = 0,
-) -> jax.Array:
-    """Fused forward attention against an 8-bit quantized KV cache.
+    q, k_q, k_scale, v_q, v_scale, *, causal=False, sm_scale=None,
+    q_offset=0, interpret=None, window=None, sinks=0,
+):
+    """Forward attention against an 8-bit KV cache.
 
-    k_q/v_q: [B, Hkv, S, D] int8 OR float8_e4m3fn (per-token symmetric
-    scales from ops.quant.quantize_kv: k_scale/v_scale [B, Hkv, S, 1] f32).
-    Dequant is fused at the kernel's K/V load stage — the KV stream across
-    HBM stays 8-bit (half the bf16 bytes), the in-VMEM cast feeds the MXU,
-    K's scale lands on the f32 score tile after QK^T, V's scale folds into
-    the exp weights (SURVEY Phase 4; the slot where the reference's
-    cp.async double-buffer sits, flashattn_forward_wmma_v5_cp_async.cu:
-    229-251). Forward-only (serving/long-context prefill: BASELINE
-    config 5's "seq 32K, INT8 KV-cache" shape). Returns [B, Hq, N, Dv].
+    k_q/v_q: [B, Hkv, S, D] int8 or float8_e4m3fn; k_scale/v_scale:
+    [B, Hkv, S, 1] f32 per-token scales (ops.quant.quantize_kv). Dequant
+    happens after each tile's load, so the cache crosses device memory in
+    8 bits. Forward-only. Returns [B, Hq, N, Dv].
     """
-    out, _ = _fwd_select(
-        q, k_q, v_q, causal, sm_scale, q_offset, block_q, block_k,
-        interpret, DEFAULT_NUM_SUB, stable, window, sinks, None,
-        k_scale=k_scale, v_scale=v_scale,
-    )
-    return out
+    return flash_attention_kv_quant_with_lse(
+        q, k_q, k_scale, v_q, v_scale, causal=causal, sm_scale=sm_scale,
+        q_offset=q_offset, interpret=interpret, window=window, sinks=sinks,
+    )[0]
 
 
 def flash_attention_kv_quant_with_lse(
     q, k_q, k_scale, v_q, v_scale, *, causal=False, sm_scale=None,
-    q_offset=0, block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
-    interpret=None, stable=True, window=None, sinks=0,
+    q_offset=0, interpret=None, window=None, sinks=0,
 ):
     """flash_attention_kv_quant that also returns logsumexp [b, hq, n] —
-    the merge carry for ring/context-parallel attention over 8-bit KV
-    shards (parallel.ring_attention_kv_quant)."""
-    return _fwd_select(
-        q, k_q, v_q, causal, sm_scale, q_offset, block_q, block_k,
-        interpret, DEFAULT_NUM_SUB, stable, window, sinks, None,
-        k_scale=k_scale, v_scale=v_scale,
+    the merge carry for ring attention over 8-bit KV shards."""
+    b, s = q.shape[0], k_q.shape[2]
+    return _fwd(
+        q, k_q, v_q, jnp.full((b,), s, jnp.int32),
+        jnp.full((b,), q_offset, jnp.int32),
+        causal=causal, sm_scale=sm_scale, interpret=interpret, window=window,
+        sinks=sinks, k_scale=k_scale, v_scale=v_scale,
     )
+
+
+_RAGGED_STATIC = ("causal", "sm_scale", "interpret", "window", "sinks")
+
+
+@functools.partial(jax.jit, static_argnames=_RAGGED_STATIC)
+def flash_attention_ragged(
+    q, k, v, kv_lens, q_offsets, *, causal=True, sm_scale=None,
+    interpret=None, window=None, sinks=0,
+):
+    """Attention with per-row KV lengths and causal query offsets.
+
+    q: [B, Hq, N, D]; k/v: [B, Hkv, S_max, D] (e.g. a padded KV cache);
+    kv_lens: [B] valid keys per row; q_offsets: [B] position of query 0
+    (query i attends key j iff j <= i + q_offsets[b] and j < kv_lens[b]).
+    Forward-only (serving path). Returns [B, Hq, N, Dv].
+    """
+    return _fwd(
+        q, k, v, kv_lens, q_offsets, causal=causal, sm_scale=sm_scale,
+        interpret=interpret, window=window, sinks=sinks,
+    )[0]
+
+
+@functools.partial(jax.jit, static_argnames=_RAGGED_STATIC)
+def flash_attention_ragged_kv_quant(
+    q, k_q, k_scale, v_q, v_scale, kv_lens, q_offsets, *, causal=True,
+    sm_scale=None, interpret=None, window=None, sinks=0,
+):
+    """flash_attention_ragged against an 8-bit KV cache (layout as in
+    flash_attention_kv_quant); the chunked-prefill path of a quantized
+    cache."""
+    return _fwd(
+        q, k_q, v_q, kv_lens, q_offsets, causal=causal, sm_scale=sm_scale,
+        interpret=interpret, window=window, sinks=sinks, k_scale=k_scale,
+        v_scale=v_scale,
+    )[0]
+
+
+# ---------------------------------------------------------------------------
+# Plain reference
+# ---------------------------------------------------------------------------
+
+def reference_attention(
+    q, k, v, *, causal=False, sm_scale=None, q_offsets=None, kv_lens=None,
+    window=None, sinks=0, q_chunk=None,
+):
+    """Plain `jnp` attention in float32 — what XLA makes of the unfused
+    expression, and the on-card reference for the kernels.
+
+    q_offsets / kv_lens: optional [B] per-row offsets and lengths (ragged).
+    q_chunk: process query rows in chunks of this many, so the [B, H, N, S]
+    score tensor of a long call need not fit at once.
+    Returns f32 [B, Hq, N, Dv].
+    """
+    b, hq, n, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    kf = k.astype(jnp.float32)
+    vf = v.astype(jnp.float32)
+    offs = (jnp.zeros((b,), jnp.int32) if q_offsets is None
+            else jnp.asarray(q_offsets, jnp.int32))
+    lens = (jnp.full((b,), s, jnp.int32) if kv_lens is None
+            else jnp.asarray(kv_lens, jnp.int32))
+    cols = jnp.arange(s)
+
+    def rows_out(qc, r0):
+        qf = qc.astype(jnp.float32).reshape(b, hkv, group, -1, d)
+        sc = jnp.einsum("bhgnd,bhsd->bhgns", qf, kf) * sm_scale
+        pos = (r0 + jnp.arange(qc.shape[2]))[None, :] + offs[:, None]
+        mask = cols[None, None, :] < lens[:, None, None]
+        if causal:
+            mask = mask & (cols[None, None, :] <= pos[:, :, None])
+        if window is not None:
+            band = cols[None, None, :] > pos[:, :, None] - window
+            if sinks:
+                band = band | (cols[None, None, :] < sinks)
+            mask = mask & band
+        mask = mask[:, None, None]
+        sc = jnp.where(mask, sc, -jnp.inf)
+        m = jnp.max(sc, axis=-1, keepdims=True)
+        m = jnp.where(jnp.isfinite(m), m, 0.0)
+        p = jnp.where(mask, jnp.exp(sc - m), 0.0)
+        l = jnp.sum(p, axis=-1, keepdims=True)
+        o = jnp.einsum("bhgns,bhsd->bhgnd", p, vf) / jnp.where(l == 0, 1, l)
+        return o.reshape(b, hq, -1, vf.shape[-1])
+
+    if q_chunk is None or q_chunk >= n:
+        return rows_out(q, 0)
+    outs = [rows_out(q[:, :, r:r + q_chunk], r) for r in range(0, n, q_chunk)]
+    return jnp.concatenate(outs, axis=2)

@@ -1,24 +1,24 @@
-"""Split-KV flash decode ("flash decoding") with optional INT8 KV cache.
+"""Split-KV flash decode ("flash decoding") over a linear or paged KV cache.
 
 The reference's streaming kernels are exactly this decode shape: a small
 fixed Q block with K/V streamed over the sequence in tiles, accumulated with
 the unnormalized (m, l, y) streaming merge
 (Streaming_FlashAttention_Forward_Kernel/flashattn_streaming_16x16.cu:15-24,
-239-262, and the 2-warp function-split endpoint
-flashattn_streaming_16x32_2warp_softmax_v12iA.cu:61-274).
+239-262).
 
-TPU design: one new token per sequence, GQA query group of G rows per KV
-head (padded to the 8-sublane minimum). The KV sequence is cut into
-`n_splits` independent splits — a parallel grid dimension, NOT a serial
-carry — each emitting an unnormalized (m, l, y) partial; partials combine
-with the associative merge (ops.softmax.merge algebra) in one jnp reduction.
-The same merge later combines partials across *chips* (parallel/ring
-attention), which is why decode and distribution share one discipline.
+Design (Pallas through Triton): one new token per sequence; the GQA group's
+q rows for one KV head form one q tile (padded to the 16 rows a tensor-core
+product needs). Each program owns one (split, KV head, sequence) and loops
+over the KV tiles of its split that the row can see, stopping at the row's
+length, so a padded cache costs only its live tokens. Splits emit
+unnormalized (m, l, y) partials that one `jnp` reduction merges
+(`merge_partials`); the same merge combines partials across devices
+(parallel/ring attention and sequence-sharded decode).
 
-INT8 KV: cache stored int8 with per-token scales; the in-kernel dequant sits
-at the K/V load stage (the reference's cp.async slot). QK^T applies the K
-scale per score column AFTER the matmul; the V scale folds into the exp
-weights — both keep the MXU matmul unscaled.
+An 8-bit cache (int8 or fp8 e4m3, per-token scales) is dequantised after
+each tile's load: K's scale multiplies the score columns, V's folds into the
+probabilities. A paged cache is the same loop with each tile gathered from
+the pages its block table names.
 """
 
 from __future__ import annotations
@@ -27,269 +27,248 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from flashattention_kernel_project_tpu.ops.gemm import _precision
-from flashattention_kernel_project_tpu.ops.softmax import NEG_INF
-from flashattention_kernel_project_tpu.utils.platform import default_interpret
+from flashattention_kernel_project_tpu.ops.flash_attention import (
+    MASK_VALUE,
+    _LN2,
+    _LOG2E,
+    _dot,
+    _pad_axis,
+    _pow2,
+    _round_up,
+)
+from flashattention_kernel_project_tpu.utils.platform import resolve_interpret
+
+# tokens per split: enough programs to fill the card at serving batch sizes
+# while each program still streams several tiles (chosen on the card with
+# the tile rows, warps and stages below; PERF.md)
+_SPLIT_TOKENS = 512
+_BLOCK_K = 64  # KV tile rows (paged: pages gathered per tile to reach it)
+_NUM_WARPS = 4
+_NUM_STAGES = 3
 
 
 def _decode_kernel(
-    len_ref,  # scalar-prefetch [B] int32
-    q_ref,  # [1, 1, GP, D]
-    k_ref,  # [1, 1, block_s, D]
-    v_ref,  # [1, 1, block_s, D]
-    m_ref,  # [1, 1, 1, GP, 1]
-    l_ref,
-    y_ref,  # [1, 1, 1, GP, D]
-    *,
-    block_s: int,
-    sm_scale: float,
-    window: int | None = None,
-    sinks: int = 0,
+    len_ref, q_ref, k_ref, v_ref, *refs,
+    quant, paged, window, sinks, scale, block_k, split_len, pages_per_tile,
 ):
-    split = pl.program_id(2)
-    length = len_ref[pl.program_id(0)]
-    gp = q_ref.shape[2]
+    if paged:
+        tbl_ref, *refs = refs
+    if quant:
+        ks_ref, vs_ref, m_ref, l_ref, y_ref = refs
+    else:
+        m_ref, l_ref, y_ref = refs
+    split = pl.program_id(0)
+    length = len_ref[0]
+    q = q_ref[...]
+    gp = q.shape[0]
 
-    m_ref[0, 0, 0] = jnp.full_like(m_ref[0, 0, 0], NEG_INF)
-    l_ref[0, 0, 0] = jnp.zeros_like(l_ref[0, 0, 0])
-    y_ref[0, 0, 0] = jnp.zeros_like(y_ref[0, 0, 0])
+    def load(ref, j, is_scale=False):
+        if not paged:
+            sl = pl.ds(j * block_k, block_k)
+            return ref[sl] if is_scale else ref[sl, :]
+        pids = tbl_ref[pl.ds(j * pages_per_tile, pages_per_tile)]
+        x = ref[pids]
+        return x.reshape((block_k,) + x.shape[2:])
 
-    live = split * block_s < length
-    if window is not None:
-        # sliding window: the decode query attends keys
-        # [max(0, length - window), length), plus the first `sinks` keys
-        in_band = (split + 1) * block_s > length - window
-        if sinks:
-            in_band = jnp.logical_or(in_band, split * block_s < sinks)
-        live = jnp.logical_and(live, in_band)
-
-    @pl.when(live)
-    def _compute():
-        q = q_ref[0, 0]  # [GP, D]
-        k = k_ref[0, 0].astype(q.dtype)  # [block_s, D]
-        v = v_ref[0, 0].astype(q.dtype)
-
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(q.dtype),
-        ) * sm_scale  # [GP, block_s]
-
-        col = split * block_s + jax.lax.broadcasted_iota(jnp.int32, (gp, block_s), 1)
-        mask = col < length
+    def body(j, carry):
+        acc, m, l = carry
+        k = load(k_ref, j)
+        if quant:
+            k = k.astype(q.dtype)
+        s = _dot(q, k, trans_b=True)
+        if quant:
+            s = s * load(ks_ref, j, True)[None, :]
+        s = s * scale
+        cols = j * block_k + lax.broadcasted_iota(jnp.int32, (block_k,), 0)
+        ok = cols < length
         if window is not None:
-            wm = col >= length - window
+            band = cols >= length - window
             if sinks:
-                wm = jnp.logical_or(wm, col < sinks)
-            mask = jnp.logical_and(mask, wm)
-        s = jnp.where(mask, s, NEG_INF)
-        m = jnp.max(s, axis=-1, keepdims=True)  # [GP, 1]
-        e = jnp.where(mask, jnp.exp(s - m), 0.0)
-        l = jnp.sum(e, axis=-1, keepdims=True)
-        y = jax.lax.dot_general(
-            e.astype(v.dtype), v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_precision(v.dtype),
-        )
-        m_ref[0, 0, 0] = m
-        l_ref[0, 0, 0] = l
-        y_ref[0, 0, 0] = y
+                band = band | (cols < sinks)
+            ok = ok & band
+        s = jnp.where(ok[None, :], s, MASK_VALUE)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        alpha = jnp.exp2(m - m_new)
+        p = jnp.exp2(s - m_new[:, None])
+        l = l * alpha + jnp.sum(p, axis=1)
+        v = load(v_ref, j)
+        if quant:
+            p = p * load(vs_ref, j, True)[None, :]
+            v = v.astype(q.dtype)
+        acc = acc * alpha[:, None] + _dot(p.astype(v.dtype), v)
+        return acc, m_new, l
+
+    # this split's tiles, cut to the row's visible keys: the sink tiles,
+    # then the window band up to the row's length
+    t0 = split * (split_len // block_k)
+    t1 = t0 + split_len // block_k
+    hi = jnp.minimum(lax.div(length + block_k - 1, block_k), t1)
+    carry = (
+        jnp.zeros((gp, y_ref.shape[-1]), jnp.float32),
+        jnp.full((gp,), MASK_VALUE, jnp.float32),
+        jnp.zeros((gp,), jnp.float32),
+    )
+    lo = t0
+    if window is not None:
+        band_lo = lax.div(jnp.maximum(length - window, 0), block_k)
+        if sinks:
+            sink_hi = jnp.minimum((sinks + block_k - 1) // block_k, hi)
+            carry = lax.fori_loop(t0, sink_hi, body, carry)
+            band_lo = jnp.maximum(band_lo, sink_hi)
+        lo = jnp.maximum(band_lo, t0)
+    acc, m, l = lax.fori_loop(lo, hi, body, carry)
+    m_ref[...] = m
+    l_ref[...] = l
+    y_ref[...] = acc
 
 
-def _decode_kernel_int8(
-    len_ref,  # scalar-prefetch [B] int32
-    q_ref,
-    k_ref,  # int8 [1, 1, block_s, D]
-    ks_ref,  # [1, 1, 1, block_s] f32 per-token scale, LANE-oriented
-    v_ref,
-    vs_ref,
-    m_ref,
-    l_ref,
-    y_ref,
-    *,
-    block_s: int,
-    sm_scale: float,
-    window: int | None = None,
-    sinks: int = 0,
+def _decode_partials(
+    q, k, v, lengths, *, k_scale=None, v_scale=None, block_table=None,
+    n_splits=None, sm_scale=None, interpret=None, window=None, sinks=0,
 ):
-    split = pl.program_id(2)
-    length = len_ref[pl.program_id(0)]
-    gp = q_ref.shape[2]
+    """Per-split partials: m, l [B, Hkv, n_splits, G] (m natural-log) and
+    y [B, Hkv, n_splits, G, Dv]."""
+    interpret = resolve_interpret(interpret)
+    b, hq, d = q.shape
+    paged = block_table is not None
+    quant = k_scale is not None
+    if paged:
+        n_pages, hkv, page, _ = k.shape
+        if page & (page - 1):
+            raise ValueError(f"page size {page} must be a power of two")
+        max_pages = block_table.shape[1]
+        pages_per_tile = max(1, _BLOCK_K // page)
+        block_k = page * pages_per_tile
+        s_cap = max_pages * page
+    else:
+        hkv, s_cap = k.shape[1], k.shape[2]
+        pages_per_tile = 1
+        block_k = min(_BLOCK_K, _pow2(s_cap))
+    d_v = v.shape[-1]
+    g = hq // hkv
+    gp = _pow2(g)
+    dp, dvp = _pow2(d), _pow2(d_v)
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    if n_splits is None:
+        n_splits = max(1, -(-s_cap // _SPLIT_TOKENS))
+    # each split a whole number of tiles
+    split_len = -(-s_cap // (n_splits * block_k)) * block_k
+    n_splits = -(-s_cap // split_len)
+    s_pad = split_len * n_splits
 
-    m_ref[0, 0, 0] = jnp.full_like(m_ref[0, 0, 0], NEG_INF)
-    l_ref[0, 0, 0] = jnp.zeros_like(l_ref[0, 0, 0])
-    y_ref[0, 0, 0] = jnp.zeros_like(y_ref[0, 0, 0])
-
-    live = split * block_s < length
-    if window is not None:
-        in_band = (split + 1) * block_s > length - window
-        if sinks:
-            in_band = jnp.logical_or(in_band, split * block_s < sinks)
-        live = jnp.logical_and(live, in_band)
-
-    @pl.when(live)
-    def _compute():
-        q = q_ref[0, 0]
-        # dequant at the load stage: int8 -> bf16 cast only; scales applied
-        # outside the MXU matmuls. Scales arrive lane-oriented [1, block_s]:
-        # a sublane-oriented [block_s, 1] block here costs a VPU transpose
-        # per program (measured 2.1x the whole bf16 kernel).
-        k = k_ref[0, 0].astype(q.dtype)
-        k_scale = ks_ref[0, 0]  # [1, block_s]
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        s = s * (sm_scale * k_scale)
-
-        col = split * block_s + jax.lax.broadcasted_iota(jnp.int32, (gp, block_s), 1)
-        mask = col < length
-        if window is not None:
-            wm = col >= length - window
-            if sinks:
-                wm = jnp.logical_or(wm, col < sinks)
-            mask = jnp.logical_and(mask, wm)
-        s = jnp.where(mask, s, NEG_INF)
-        m = jnp.max(s, axis=-1, keepdims=True)
-        e = jnp.where(mask, jnp.exp(s - m), 0.0)
-        l = jnp.sum(e, axis=-1, keepdims=True)
-        # fold the per-token V scale into the exp weights (VPU, [GP, block_s])
-        ew = e * vs_ref[0, 0]  # [1, block_s] lane-oriented broadcast
-        v = v_ref[0, 0].astype(q.dtype)
-        y = jax.lax.dot_general(
-            ew.astype(q.dtype), v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        m_ref[0, 0, 0] = m
-        l_ref[0, 0, 0] = l
-        y_ref[0, 0, 0] = y
-
-
-def _decode_kernel_int8_mxu(
-    len_ref,  # scalar-prefetch [B] int32
-    q_ref,   # int8 [1, 1, GP, D] (per-row quantized by the wrapper)
-    qs_ref,  # f32 [1, 1, GP, 1] per-row q scale, sm_scale pre-folded
-    k_ref,   # int8 [1, 1, block_s, D]
-    ks_ref,  # f32 [1, 1, 1, block_s] per-token scale, LANE-oriented
-    v_ref,   # int8 [1, 1, block_s, D]
-    vs_ref,
-    m_ref,
-    l_ref,
-    y_ref,
-    *,
-    block_s: int,
-    window: int | None = None,
-    sinks: int = 0,
-):
-    """INT8 decode with BOTH matmuls on the MXU in int8 (394 TOPS on v5e).
-
-    The cast-based kernel (_decode_kernel_int8) spends a VPU pass over every
-    K and V element (int8 -> bf16, [block_s, D] each) — at decode's ~1:1
-    bytes:FLOPs that cast work is comparable to the HBM stream itself and
-    halves the achieved bandwidth (measured 0.53x roofline vs bf16's 0.83x).
-    Here K and V stay int8 end-to-end: QK^T runs int8 x int8 (q is per-row
-    requantized on the host side, scales folded onto the f32 score tile),
-    and the exp weights are per-row requantized to int8 for the PV matmul
-    (ew is [GP, block_s] — 16x fewer elements than casting V). All VPU
-    passes touch [GP, block_s] tiles only; the [block_s, D] streams go
-    straight from the DMA to the MXU."""
-    split = pl.program_id(2)
-    length = len_ref[pl.program_id(0)]
-    gp = q_ref.shape[2]
-
-    m_ref[0, 0, 0] = jnp.full_like(m_ref[0, 0, 0], NEG_INF)
-    l_ref[0, 0, 0] = jnp.zeros_like(l_ref[0, 0, 0])
-    y_ref[0, 0, 0] = jnp.zeros_like(y_ref[0, 0, 0])
-
-    live = split * block_s < length
-    if window is not None:
-        in_band = (split + 1) * block_s > length - window
-        if sinks:
-            in_band = jnp.logical_or(in_band, split * block_s < sinks)
-        live = jnp.logical_and(live, in_band)
-
-    @pl.when(live)
-    def _compute():
-        q = q_ref[0, 0]  # int8 [GP, D]
-        k = k_ref[0, 0]  # int8 [block_s, D]
-        s32 = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        # per-row q scale (sm_scale folded) x per-token K scale — one VPU
-        # pass over the [GP, block_s] score tile
-        s = s32.astype(jnp.float32) * (qs_ref[0, 0] * ks_ref[0, 0])
-
-        col = split * block_s + jax.lax.broadcasted_iota(
-            jnp.int32, (gp, block_s), 1
-        )
-        mask = col < length
-        if window is not None:
-            wm = col >= length - window
-            if sinks:
-                wm = jnp.logical_or(wm, col < sinks)
-            mask = jnp.logical_and(mask, wm)
-        s = jnp.where(mask, s, NEG_INF)
-        m = jnp.max(s, axis=-1, keepdims=True)
-        e = jnp.where(mask, jnp.exp(s - m), 0.0)
-        l = jnp.sum(e, axis=-1, keepdims=True)
-        # fold the per-token V scale, then requantize the weights per row:
-        # ew >= 0, so round-half-up via floor(x + 0.5)
-        ew = e * vs_ref[0, 0]  # [GP, block_s]
-        r = jnp.max(ew, axis=-1, keepdims=True)
-        rs = jnp.where(r == 0.0, 1.0, r) * (1.0 / 127.0)
-        ei = jnp.floor(ew / rs + 0.5).astype(jnp.int8)
-        y32 = jax.lax.dot_general(
-            ei, v_ref[0, 0], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        m_ref[0, 0, 0] = m
-        l_ref[0, 0, 0] = l
-        y_ref[0, 0, 0] = y32.astype(jnp.float32) * rs
+    qg = _pad_axis(_pad_axis(q.reshape(b, hkv, g, d), 2, gp), 3, dp)
+    kernel = functools.partial(
+        _decode_kernel, quant=quant, paged=paged, window=window, sinks=sinks,
+        scale=float(sm_scale) * _LOG2E, block_k=block_k, split_len=split_len,
+        pages_per_tile=pages_per_tile,
+    )
+    row = lambda sp, h, bb: (bb,)  # noqa: E731
+    in_specs = [
+        pl.BlockSpec((1,), row),
+        pl.BlockSpec((None, None, gp, dp), lambda sp, h, bb: (bb, h, 0, 0)),
+    ]
+    operands = [lengths.astype(jnp.int32).reshape(b), qg]
+    if paged:
+        k = _pad_axis(k, 3, dp)
+        v = _pad_axis(v, 3, dvp)
+        pool = lambda sp, h, bb: (0, h, 0, 0)  # noqa: E731
+        in_specs += [
+            pl.BlockSpec((n_pages, None, page, dp), pool),
+            pl.BlockSpec((n_pages, None, page, dvp), pool),
+            pl.BlockSpec((None, s_pad // page), lambda sp, h, bb: (bb, 0)),
+        ]
+        operands += [
+            k, v, _pad_axis(block_table.astype(jnp.int32), 1, s_pad // page),
+        ]
+        if quant:
+            spool = lambda sp, h, bb: (0, h, 0)  # noqa: E731
+            in_specs += [pl.BlockSpec((n_pages, None, page), spool)] * 2
+            operands += [
+                x.reshape(n_pages, hkv, page).astype(jnp.float32)
+                for x in (k_scale, v_scale)
+            ]
+    else:
+        # pad only to whole tiles (a cache of whole tiles is not copied):
+        # no program reads a tile past its row's length
+        s_t = _round_up(s_cap, block_k)
+        k = _pad_axis(_pad_axis(k, 2, s_t), 3, dp)
+        v = _pad_axis(_pad_axis(v, 2, s_t), 3, dvp)
+        kv = lambda sp, h, bb: (bb, h, 0, 0)  # noqa: E731
+        in_specs += [
+            pl.BlockSpec((None, None, s_t, dp), kv),
+            pl.BlockSpec((None, None, s_t, dvp), kv),
+        ]
+        operands += [k, v]
+        if quant:
+            sc = lambda sp, h, bb: (bb, h, 0)  # noqa: E731
+            in_specs += [pl.BlockSpec((None, None, s_t), sc)] * 2
+            operands += [
+                _pad_axis(x.reshape(b, hkv, s_cap).astype(jnp.float32), 2, s_t)
+                for x in (k_scale, v_scale)
+            ]
+    out_map = lambda sp, h, bb: (bb, h, sp, 0)  # noqa: E731
+    m, l, y = pl.pallas_call(
+        kernel,
+        grid=(n_splits, hkv, b),
+        in_specs=in_specs,
+        out_specs=[
+            pl.BlockSpec((None, None, None, gp), out_map),
+            pl.BlockSpec((None, None, None, gp), out_map),
+            pl.BlockSpec((None, None, None, gp, dvp),
+                         lambda sp, h, bb: (bb, h, sp, 0, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((b, hkv, n_splits, gp), jnp.float32),
+            jax.ShapeDtypeStruct((b, hkv, n_splits, gp), jnp.float32),
+            jax.ShapeDtypeStruct((b, hkv, n_splits, gp, dvp), jnp.float32),
+        ],
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
+        ),
+        backend="triton",
+        interpret=interpret,
+        name="paged_decode" if paged else "flash_decode",
+    )(*operands)
+    return m[..., :g] * _LN2, l[..., :g], y[..., :g, :d_v]
 
 
-def _clamp_to_live(ln, bb, s, block_s, window=None, sinks=0):
-    """Split index clamped to the live block range of sequence bb: dead
-    splits re-map to a live one so consecutive grid steps fetch the same
-    block and the pipeline elides their DMAs (see flash_decode). With a
-    sliding window, splits wholly below the window start are dead too and
-    clamp UP to the first live split."""
-    last = jnp.maximum(jax.lax.div(ln[bb] + block_s - 1, block_s) - 1, 0)
-    s_eff = jnp.minimum(s, last)
-    if window is not None:
-        first = jnp.maximum(ln[bb] - window, 0) // block_s
-        s_eff = jnp.maximum(s_eff, first)
-        if sinks:
-            # attention-sink splits below the window band are LIVE and must
-            # keep their own index (the gap between sinks and the band is
-            # dead either way and clamps up to the band)
-            s_eff = jnp.where(s * block_s < sinks, jnp.minimum(s, last), s_eff)
-    return s_eff
+def fold_partials(m, l, y):
+    """Fold partials along axis -3 but keep the state unnormalized.
+
+    m, l: [..., n, G, 1]; y: [..., n, G, D] -> ([..., G, 1], [..., G, 1],
+    [..., G, D]). Associative and commutative (the streaming algebra), so
+    splits of one device and shards of several combine the same way."""
+    m_g = jnp.max(m, axis=-3, keepdims=True)
+    alpha = jnp.exp(m - m_g)
+    return m_g[..., 0, :, :], jnp.sum(l * alpha, axis=-3), jnp.sum(
+        y * alpha, axis=-3
+    )
 
 
 def merge_partials(m, l, y):
-    """Combine per-split unnormalized partials along axis `-3`/`-2` of
-    (m, l) / y with the associative streaming algebra (one-shot form:
-    commutativity lets the fold collapse into max + two weighted sums)."""
-    # m, l: [..., n_splits, GP, 1]; y: [..., n_splits, GP, D]
-    m_g = jnp.max(m, axis=-3, keepdims=True)
-    alpha = jnp.exp(m - m_g)
-    l_g = jnp.sum(l * alpha, axis=-3)
-    y_g = jnp.sum(y * alpha, axis=-3)
-    safe_l = jnp.where(l_g == 0.0, 1.0, l_g)
-    return y_g / safe_l
+    """Combine partials along axis -3 and normalize: [..., G, D]."""
+    _, l_g, y_g = fold_partials(m, l, y)
+    return y_g / jnp.where(l_g == 0.0, 1.0, l_g)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n_splits", "sm_scale", "interpret", "return_partials", "window",
-        "sinks",
-    ),
-)
+def _finish(q, m, l, y, return_partials):
+    m, l = m[..., None], l[..., None]
+    if return_partials:
+        return fold_partials(m, l, y)
+    b, hq, _ = q.shape
+    return merge_partials(m, l, y).reshape(b, hq, -1).astype(q.dtype)
+
+
+_STATIC = ("n_splits", "sm_scale", "interpret", "return_partials", "window",
+           "sinks")
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def flash_decode(
     q: jax.Array,
     k_cache: jax.Array,
@@ -303,130 +282,31 @@ def flash_decode(
     window: int | None = None,
     sinks: int = 0,
 ) -> jax.Array:
-    """Single-token GQA decode against a (padded) KV cache.
-
-    window: sliding-window decode — attend only the `window` most recent
-    keys [max(0, length - window), length); out-of-window splits are
-    compute-skipped AND their DMAs elided (index-map clamp).
-
-    return_partials=True skips the final normalize and returns the folded
-    unnormalized streaming state (m, l, y) with shapes [B, Hkv, G, 1]/
-    [B, Hkv, G, 1]/[B, Hkv, G, D] — the associative cross-device combiner
-    state for sequence-sharded decode (parallel.seq_sharded_decode).
+    """Single-token GQA decode against a (padded) linear KV cache.
 
     Args:
       q: [B, Hq, D] — one new token per sequence.
       k_cache, v_cache: [B, Hkv, S_max, D].
-      lengths: [B] int32 — valid tokens per sequence (query position is
-        lengths-1; causal decode attends to keys [0, lengths)).
-      n_splits: KV splits (parallel partials merged associatively). Default
-        (None): one split per ~1024 cache tokens — a single TPU core runs
-        grid programs serially, so extra splits are pure per-program
-        overhead (measured 1.42 -> 1.13 ms/step going 8 -> 1 at S=2304);
-        splits only pay off by SKIPPING fully-masked regions of long padded
-        caches via the in-kernel length check.
+      lengths: [B] int32 — valid tokens per sequence (the query sits at
+        position lengths-1 and attends keys [0, lengths)).
+      n_splits: KV splits per sequence (None: one per `_SPLIT_TOKENS`
+        cache tokens).
+      window: attend only the `window` most recent keys; with `sinks`, the
+        first `sinks` keys stay visible too.
+      return_partials: return the folded unnormalized state (m, l, y) with
+        shapes [B, Hkv, G, 1] / [B, Hkv, G, 1] / [B, Hkv, G, D] — the
+        cross-device combiner state for sequence-sharded decode.
 
     Returns [B, Hq, D] in q.dtype.
     """
-    if interpret is None:
-        interpret = default_interpret()
-    b, hq, d = q.shape
-    _, hkv, s_max, _ = k_cache.shape
-    if n_splits is None:
-        # ~4096 tokens per split: the TensorCore runs grid programs
-        # SERIALLY, so more splits only buy finer dead-block elision for
-        # ragged lengths while paying a fixed per-program cost that
-        # dominated the int8 rung (measured at S=8192, b8/h16-4/d128:
-        # 1024-token splits 0.545x HBM roofline, 4096-token 0.879x,
-        # 8192-token 0.886x; bf16 0.832x -> 0.906x)
-        n_splits = max(1, -(-s_max // 4096))
-    assert hq % hkv == 0
-    g = hq // hkv
-    gp = max(8, g)
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
-
-    # [B, Hq, D] -> [B, Hkv, GP, D]
-    qg = q.reshape(b, hkv, g, d)
-    if gp != g:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, gp - g), (0, 0)))
-
-    pad_s = (-s_max) % n_splits
-    block_s = (s_max + pad_s) // n_splits
-    # keep each split's KV tile lane-aligned
-    extra = (-block_s) % 8
-    if extra:
-        pad_s += extra * n_splits
-        block_s += extra
-    if pad_s:
-        k_cache = jnp.pad(k_cache, ((0, 0), (0, 0), (0, pad_s), (0, 0)))
-        v_cache = jnp.pad(v_cache, ((0, 0), (0, 0), (0, pad_s), (0, 0)))
-
-    kernel = functools.partial(
-        _decode_kernel, block_s=block_s, sm_scale=sm_scale, window=window,
-        sinks=sinks,
+    m, l, y = _decode_partials(
+        q, k_cache, v_cache, lengths, n_splits=n_splits, sm_scale=sm_scale,
+        interpret=interpret, window=window, sinks=sinks,
     )
-
-    # Dead splits (entirely past `length`) clamp their K/V block index to the
-    # last live split: consecutive grid steps then map to the same block and
-    # the pipeline ELIDES the DMA — a padded cache costs ceil(len/block)
-    # blocks of HBM traffic, not S_max/block (a 512-token sequence in a
-    # 3072-token cache measured 52.7 vs 75.4 us; docs/perf_journal.md).
-    def _kv_map(bb, h, s, ln):
-        return (bb, h, _clamp_to_live(ln, bb, s, block_s, window, sinks), 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(b, hkv, n_splits),
-        in_specs=[
-            pl.BlockSpec((1, 1, gp, d), lambda bb, h, s, ln: (bb, h, 0, 0)),
-            pl.BlockSpec((1, 1, block_s, d), _kv_map),
-            pl.BlockSpec((1, 1, block_s, d), _kv_map),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 1, 1, gp, 1), lambda bb, h, s, ln: (bb, h, s, 0, 0)),
-            pl.BlockSpec((1, 1, 1, gp, 1), lambda bb, h, s, ln: (bb, h, s, 0, 0)),
-            pl.BlockSpec((1, 1, 1, gp, d), lambda bb, h, s, ln: (bb, h, s, 0, 0)),
-        ],
-    )
-    m, l, y = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((b, hkv, n_splits, gp, 1), jnp.float32),
-            jax.ShapeDtypeStruct((b, hkv, n_splits, gp, 1), jnp.float32),
-            jax.ShapeDtypeStruct((b, hkv, n_splits, gp, d), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(
-        lengths.astype(jnp.int32),
-        qg.reshape(b, hkv, gp, d), k_cache, v_cache,
-    )
-
-    if return_partials:
-        # fold the split axis but keep the UNNORMALIZED streaming state —
-        # the cross-device combiner for sequence-sharded decode
-        # (parallel.seq_sharded_decode) merges these over the mesh
-        m_g = jnp.max(m, axis=-3)
-        alpha = jnp.exp(m - m_g[..., None, :, :])
-        l_g = jnp.sum(l * alpha, axis=-3)
-        y_g = jnp.sum(y * alpha, axis=-3)
-        return m_g[:, :, :g], l_g[:, :, :g], y_g[:, :, :g]
-
-    out = merge_partials(m, l, y)  # [B, Hkv, GP, D]
-    return out[:, :, :g].reshape(b, hq, d).astype(q.dtype)
+    return _finish(q, m, l, y, return_partials)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n_splits", "sm_scale", "interpret", "return_partials", "window",
-        "sinks", "mxu",
-    ),
-)
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def flash_decode_int8(
     q: jax.Array,
     k_q: jax.Array,
@@ -441,146 +321,21 @@ def flash_decode_int8(
     return_partials: bool = False,
     window: int | None = None,
     sinks: int = 0,
-    mxu: bool | None = None,
 ) -> jax.Array:
-    """flash_decode against a quantized KV cache (per-token scales, dequant
-    fused into the kernel's K/V load stage — the slot where the reference
-    does cp.async, flashattn_forward_wmma_v5_cp_async.cu:229-251).
+    """flash_decode against an 8-bit KV cache.
 
-    k_q/v_q: [B, Hkv, S_max, D] int8 OR float8_e4m3fn; k_scale/v_scale:
-    [B, Hkv, S_max, 1] f32. `flash_decode_fp8` is the fp8-named alias.
-
-    mxu (int8 caches only): run both matmuls int8 x int8 on the MXU with
-    q and the exp weights per-row requantized, instead of casting the
-    [block_s, D] K/V streams to bf16 on the VPU — see
-    _decode_kernel_int8_mxu. Measured NEUTRAL at the serving shape
-    (S=8192 b8: 723 vs 720 GB/s — the cast overlaps the DMA once splits
-    are sized right), so it stays off by default: it costs one extra
-    ~1% quantization error term. It is the right tool only if a config
-    shows the VPU cast on the critical path.
+    k_q/v_q: [B, Hkv, S_max, D] int8 or float8_e4m3fn; k_scale/v_scale:
+    [B, Hkv, S_max, 1] f32 per-token scales. `flash_decode_fp8` is the
+    fp8-named alias.
     """
-    if interpret is None:
-        interpret = default_interpret()
-    b, hq, d = q.shape
-    _, hkv, s_max, _ = k_q.shape
-    if mxu is None:
-        mxu = False
-    assert not (mxu and k_q.dtype != jnp.int8), "mxu path needs an int8 cache"
-    if n_splits is None:
-        # ~4096 tokens per split: the TensorCore runs grid programs
-        # SERIALLY, so more splits only buy finer dead-block elision for
-        # ragged lengths while paying a fixed per-program cost that
-        # dominated the int8 rung (measured at S=8192, b8/h16-4/d128:
-        # 1024-token splits 0.545x HBM roofline, 4096-token 0.879x,
-        # 8192-token 0.886x; bf16 0.832x -> 0.906x)
-        n_splits = max(1, -(-s_max // 4096))
-    g = hq // hkv
-    gp = max(8, g)
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
-
-    out_dtype = q.dtype
-    if mxu:
-        # per-row symmetric q quantization; sm_scale folds into the scale
-        qf = q.astype(jnp.float32)
-        qmax = jnp.max(jnp.abs(qf), axis=-1, keepdims=True)
-        qsc = jnp.where(qmax == 0.0, 1.0, qmax) * (1.0 / 127.0)
-        q = jnp.round(qf / qsc).astype(jnp.int8)
-        qs = (qsc * sm_scale).reshape(b, hkv, g, 1)
-        if gp != g:
-            qs = jnp.pad(qs, ((0, 0), (0, 0), (0, gp - g), (0, 0)))
-
-    qg = q.reshape(b, hkv, g, d)
-    if gp != g:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, gp - g), (0, 0)))
-
-    pad_s = (-s_max) % n_splits
-    block_s = (s_max + pad_s) // n_splits
-    extra = (-block_s) % 32  # int8 sublane granule
-    if extra:
-        pad_s += extra * n_splits
-        block_s += extra
-    # scales relayout to lane-major [B, Hkv, 1, S]: the kernel broadcasts
-    # them across score columns, and a [block_s, 1] sublane-oriented block
-    # would need a per-program VPU transpose (measured 2.1x the bf16 kernel)
-    k_scale = k_scale.reshape(b, hkv, 1, s_max)
-    v_scale = v_scale.reshape(b, hkv, 1, s_max)
-    if pad_s:
-        pads = ((0, 0), (0, 0), (0, pad_s), (0, 0))
-        k_q, v_q = jnp.pad(k_q, pads), jnp.pad(v_q, pads)
-        pads_sc = ((0, 0), (0, 0), (0, 0), (0, pad_s))
-        k_scale = jnp.pad(k_scale, pads_sc)
-        v_scale = jnp.pad(v_scale, pads_sc)
-
-    if mxu:
-        kernel = functools.partial(
-            _decode_kernel_int8_mxu, block_s=block_s, window=window,
-            sinks=sinks,
-        )
-    else:
-        kernel = functools.partial(
-            _decode_kernel_int8, block_s=block_s, sm_scale=sm_scale,
-            window=window, sinks=sinks,
-        )
-
-    # same dead-split DMA elision as the bf16 kernel (see flash_decode)
-    def _kv_map(bb, h, s, ln):
-        return (bb, h, _clamp_to_live(ln, bb, s, block_s, window, sinks), 0)
-
-    def _scale_map(bb, h, s, ln):
-        return (bb, h, 0, _clamp_to_live(ln, bb, s, block_s, window, sinks))
-
-    in_specs = [
-        pl.BlockSpec((1, 1, gp, d), lambda bb, h, s, ln: (bb, h, 0, 0)),
-        pl.BlockSpec((1, 1, block_s, d), _kv_map),
-        pl.BlockSpec((1, 1, 1, block_s), _scale_map),
-        pl.BlockSpec((1, 1, block_s, d), _kv_map),
-        pl.BlockSpec((1, 1, 1, block_s), _scale_map),
-    ]
-    operands = [qg.reshape(b, hkv, gp, d), k_q, k_scale, v_q, v_scale]
-    if mxu:
-        in_specs.insert(
-            1, pl.BlockSpec((1, 1, gp, 1), lambda bb, h, s, ln: (bb, h, 0, 0))
-        )
-        operands.insert(1, qs)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(b, hkv, n_splits),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((1, 1, 1, gp, 1), lambda bb, h, s, ln: (bb, h, s, 0, 0)),
-            pl.BlockSpec((1, 1, 1, gp, 1), lambda bb, h, s, ln: (bb, h, s, 0, 0)),
-            pl.BlockSpec((1, 1, 1, gp, d), lambda bb, h, s, ln: (bb, h, s, 0, 0)),
-        ],
+    m, l, y = _decode_partials(
+        q, k_q, v_q, lengths, k_scale=k_scale, v_scale=v_scale,
+        n_splits=n_splits, sm_scale=sm_scale, interpret=interpret,
+        window=window, sinks=sinks,
     )
-    m, l, y = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((b, hkv, n_splits, gp, 1), jnp.float32),
-            jax.ShapeDtypeStruct((b, hkv, n_splits, gp, 1), jnp.float32),
-            jax.ShapeDtypeStruct((b, hkv, n_splits, gp, d), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(lengths.astype(jnp.int32), *operands)
-
-    if return_partials:
-        # same UNNORMALIZED fold as flash_decode: the cross-device merge
-        # carry for sequence-sharded decode over an 8-bit cache
-        m_g = jnp.max(m, axis=-3)
-        alpha = jnp.exp(m - m_g[..., None, :, :])
-        l_g = jnp.sum(l * alpha, axis=-3)
-        y_g = jnp.sum(y * alpha, axis=-3)
-        return m_g[:, :, :g], l_g[:, :, :g], y_g[:, :, :g]
-
-    out = merge_partials(m, l, y)
-    return out[:, :, :g].reshape(b, hq, d).astype(out_dtype)
+    return _finish(q, m, l, y, return_partials)
 
 
-# fp8_e4m3 KV shares the int8 kernel: both are 8-bit-per-value + per-token
-# f32 scales; the in-kernel dequant is a cast either way.
+# fp8_e4m3 KV shares the 8-bit kernel: both are 8 bits per value with
+# per-token f32 scales, and the dequant is a cast either way.
 flash_decode_fp8 = flash_decode_int8

@@ -1,19 +1,21 @@
-"""Paged-KV decode: split-KV flash decode over a block-table KV cache.
+"""Paged KV cache: decode, extend and appends over a block-table page pool.
 
-The linear cache (ops/flash_decode.py) wastes HBM on padded tails and
+The linear cache (ops/flash_decode.py) wastes memory on padded tails and
 fragments under continuous batching; the production fix is vLLM-style
-paging: KV lives in fixed-size pages owned by a pool, each sequence holds a
-block table of page indices. TPU-natively the block table rides the
-kernel's SCALAR-PREFETCH channel (pltpu.PrefetchScalarGridSpec): the page
-index feeds the K/V BlockSpec index_map, so the pipeline DMA fetches
-exactly the pages the sequence owns — the reference's cp.async gather
-(flashattn_forward_wmma_v5_cp_async.cu:229-251) with the indirection moved
-into the grid machinery.
+paging: KV lives in fixed-size pages owned by a pool, and each sequence
+holds a block table of page ids.
 
-Math is identical to flash_decode: per-page (m, l, y) online-softmax carry
-in VMEM scratch (the associative streaming discipline,
-flashattn_streaming_16x16.cu:15-24), pages beyond a sequence's length are
-compute-skipped with pl.when.
+Pool layout: pages [n_pages, Hkv, page_size, D]; an 8-bit pool keeps
+per-token scales [n_pages, Hkv, page_size, 1] f32 beside it (the linear
+cache's scale layout, page by page). Page 0 is the junk page that padding
+table entries point at.
+
+  * decode: the split-KV decode kernel of ops/flash_decode.py, each tile
+    gathered from the pages the block table names (pages are never copied);
+  * extend (chunked prefill, speculative verify): gather the sequence's
+    pages into a contiguous view and run the ragged fused forward — a
+    chunk's compute outweighs the gather;
+  * appends: XLA scatters into the (donated) pool buffers, updated in place.
 """
 
 from __future__ import annotations
@@ -23,240 +25,22 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from flashattention_kernel_project_tpu.ops.softmax import NEG_INF
-from flashattention_kernel_project_tpu.utils.platform import default_interpret
-
-_LOG2E = 1.4426950408889634
-
-
-def _live_page(tbl, ln, bb, p, page_size):
-    """Block-table lookup with dead entries clamped to the last live page."""
-    last = jnp.maximum(jax.lax.div(ln[bb] + page_size - 1, page_size) - 1, 0)
-    return tbl[bb, jnp.minimum(p, last)]
-
-
-def _paged_decode_kernel(
-    table_ref,  # scalar-prefetch [B, max_pages] int32 page ids
-    len_ref,    # scalar-prefetch [B] int32 sequence lengths
-    q_ref,      # [1, 1, GP, D]
-    k_ref,      # [1, 1, page, D] — page selected by the index map
-    v_ref,
-    o_ref,      # [1, 1, GP, D] f32
-    m_scr,
-    l_scr,
-    acc_scr,
-    *,
-    page_size: int,
-    max_pages: int,
-):
-    b = pl.program_id(0)
-    p = pl.program_id(2)
-    length = len_ref[b]
-
-    @pl.when(p == 0)
-    def _init():
-        m_scr[:] = jnp.full_like(m_scr, NEG_INF)
-        l_scr[:] = jnp.zeros_like(l_scr)
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    # page p covers tokens [p*page_size, (p+1)*page_size)
-    live = p * page_size < length
-
-    @pl.when(live)
-    def _compute():
-        q = q_ref[0, 0]            # [GP, D], sm_scale*log2e pre-folded
-        k = k_ref[0, 0]            # [page, D]
-        v = v_ref[0, 0]
-        gp = q.shape[0]
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        # tail mask within the last live page
-        col = p * page_size + jax.lax.broadcasted_iota(
-            jnp.int32, (gp, page_size), 1
-        )
-        s = jnp.where(col < length, s, NEG_INF)
-        m_prev = m_scr[:]
-        m_tile = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_tile)
-        scale = jnp.exp2(m_prev - m_next)
-        e = jnp.exp2((s - m_next[:, :1]).astype(v.dtype))
-        # rows always have token 0 visible (length >= 1 when live), so the
-        # running max is finite and masked lanes exp2-flush to exactly 0
-        l_scr[:] = l_scr[:] * scale + jnp.sum(
-            e, axis=-1, keepdims=True, dtype=jnp.float32
-        )
-        pv = jax.lax.dot_general(
-            e, v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        acc_scr[:] = acc_scr[:] * scale[:, :1] + pv
-        m_scr[:] = m_next
-
-    @pl.when(p == max_pages - 1)
-    def _finish():
-        l = l_scr[:, :1]
-        safe_l = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, 0] = (acc_scr[:] / safe_l).astype(o_ref.dtype)
-
-
-def _paged_gather_kernel(
-    table_ref,  # scalar-prefetch [B, max_pages] int32 page ids
-    len_ref,    # scalar-prefetch [B] int32 sequence lengths
-    q_ref,      # [1, 1, GP, D]
-    k_hbm,      # ANY [n_pages, Hkv, page, D] — gathered manually
-    v_hbm,
-    o_ref,      # [1, 1, GP, D] f32
-    k_buf,      # VMEM [2, G*page, D] ping-pong
-    v_buf,
-    m_scr,
-    l_scr,
-    acc_scr,
-    sem,        # DMA semaphores [2, 2, G] (slot x {k, v} x page)
-    *,
-    page_size: int,
-    g_pages: int,
-    n_splits: int,
-    n_slots: int = 2,
-    copy_only: bool = False,
-):
-    """Multi-page gather decode: G pages per program via explicit DMAs.
-
-    The BlockSpec path (_paged_decode_kernel) runs ONE page per grid
-    program; at page_size=128 that is 64 serial programs per 8K sequence
-    x ~0.3 us fixed cost each — measured 0.18x of the HBM roofline
-    (int8: 0.07x). Here each program issues G page copies into a
-    contiguous VMEM span (double-buffered across splits, same ping-pong
-    discipline as ops/streaming.py) and computes one [GP, G*page] tile:
-    program count / G, descriptors batched, scores one matmul."""
-    b = pl.program_id(0)
-    h = pl.program_id(1)
-    s = pl.program_id(2)
-    length = len_ref[b]
-    span = g_pages * page_size
-
-    def k_dma(s_idx, slot, i):
-        pid = _live_page(table_ref, len_ref, b, s_idx * g_pages + i,
-                         page_size)
-        return pltpu.make_async_copy(
-            k_hbm.at[pid, h],
-            k_buf.at[slot, pl.ds(i * page_size, page_size)],
-            sem.at[slot, 0, i],
-        )
-
-    def v_dma(s_idx, slot, i):
-        pid = _live_page(table_ref, len_ref, b, s_idx * g_pages + i,
-                         page_size)
-        return pltpu.make_async_copy(
-            v_hbm.at[pid, h],
-            v_buf.at[slot, pl.ds(i * page_size, page_size)],
-            sem.at[slot, 1, i],
-        )
-
-    def issue(s_idx, slot):
-        for i in range(g_pages):
-            k_dma(s_idx, slot, i).start()
-            v_dma(s_idx, slot, i).start()
-
-    # n_slots-deep rotation (VERDICT r4 task 3a): depth = n_slots - 1
-    # splits stay in flight; 2 = the r2/r3 ping-pong
-    depth = n_slots - 1
-    slot = jax.lax.rem(s, n_slots)
-
-    @pl.when(s == 0)
-    def _init():
-        m_scr[:] = jnp.full_like(m_scr, NEG_INF)
-        l_scr[:] = jnp.zeros_like(l_scr)
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-        # prime splits 0..depth-1 (split i only if it exists and is live;
-        # split 0 unconditionally — the waits mirror this exactly)
-        issue(0, 0)
-        for i in range(1, min(depth, n_splits)):
-            pl.when(i * span < length)(
-                functools.partial(issue, i, i % n_slots)
-            )
-
-    # producer: split s+depth gathers while split s computes
-    @pl.when(jnp.logical_and(
-        s + depth < n_splits, (s + depth) * span < length
-    ))
-    def _next():
-        issue(s + depth, jax.lax.rem(s + depth, n_slots))
-
-    live = s * span < length
-
-    # wait exactly what was issued (s==0 is issued unconditionally at init,
-    # even for empty slots — an unwaited semaphore would leak into the next
-    # (b, h) stream's reuse of the slot)
-    @pl.when(jnp.logical_or(s == 0, live))
-    def _wait():
-        for i in range(g_pages):
-            k_dma(s, slot, i).wait()
-            v_dma(s, slot, i).wait()
-
-    @pl.when(live)
-    def _compute():
-        if copy_only:
-            # DMA-floor probe (VERDICT r4 task 3c): identical gather
-            # pattern, no attention math — one 8-row touch keeps the
-            # buffers live
-            acc_scr[:] = acc_scr[:] + (
-                k_buf[slot, :8].astype(jnp.float32)
-                + v_buf[slot, :8].astype(jnp.float32)
-            )[: acc_scr.shape[0]]
-            return
-        q = q_ref[0, 0]        # [GP, D], sm_scale*log2e pre-folded
-        k = k_buf[slot]        # [span, D]
-        v = v_buf[slot]
-        gp = q.shape[0]
-        st = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        col = s * span + jax.lax.broadcasted_iota(jnp.int32, (gp, span), 1)
-        st = jnp.where(col < length, st, NEG_INF)
-        m_prev = m_scr[:]
-        m_tile = jnp.max(st, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_tile)
-        scale = jnp.exp2(m_prev - m_next)
-        e = jnp.exp2((st - m_next[:, :1]).astype(v.dtype))
-        l_scr[:] = l_scr[:] * scale + jnp.sum(
-            e, axis=-1, keepdims=True, dtype=jnp.float32
-        )
-        pv = jax.lax.dot_general(
-            e, v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        acc_scr[:] = acc_scr[:] * scale[:, :1] + pv
-        m_scr[:] = m_next
-
-    @pl.when(s == n_splits - 1)
-    def _finish():
-        l = l_scr[:, :1]
-        safe_l = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, 0] = (acc_scr[:] / safe_l).astype(o_ref.dtype)
-
-
-def _gather_pages_per_split(page_size: int, max_pages: int,
-                            itemsize: int = 2) -> int:
-    # split sizing by BYTES, not tokens — the same bytes-per-program
-    # discipline as flash_decode's split sizing: the per-program fixed
-    # cost and the per-page descriptor cost both amortize against the
-    # bytes actually streamed, so 8-bit pools take double the tokens
-    # (bf16 2048-token spans measured 0.76x HBM roofline; int8 at the
-    # same BYTE span 0.48x vs 0.33x at half the byte span)
-    tokens = max(page_size, 4096 // max(itemsize, 1))  # 2048 tokens @ bf16
-    return max(1, min(max_pages, tokens // page_size))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("sm_scale", "interpret", "gather", "slots", "copy_only"),
+from flashattention_kernel_project_tpu.ops.flash_attention import (
+    flash_attention_ragged,
+    flash_attention_ragged_kv_quant,
 )
+from flashattention_kernel_project_tpu.ops.flash_decode import (
+    _decode_partials,
+    _finish,
+)
+from flashattention_kernel_project_tpu.ops.quant import (
+    quantize_fp8_tokenwise,
+    quantize_int8,
+)
+
+
+@functools.partial(jax.jit, static_argnames=("sm_scale", "interpret"))
 def paged_flash_decode(
     q: jax.Array,
     k_pages: jax.Array,
@@ -266,9 +50,6 @@ def paged_flash_decode(
     *,
     sm_scale: float | None = None,
     interpret: bool | None = None,
-    gather: bool = True,
-    slots: int = 2,
-    copy_only: bool = False,
 ) -> jax.Array:
     """Single-token GQA decode against a paged KV cache.
 
@@ -276,210 +57,52 @@ def paged_flash_decode(
       q: [B, Hq, D] — one new token per sequence.
       k_pages, v_pages: [n_pages, Hkv, page_size, D] — the page pool.
       block_table: [B, max_pages] int32 — page ids per sequence, in order;
-        entries past a sequence's pages must still be VALID ids (e.g. 0);
-        their compute is skipped via `lengths`.
+        entries past a sequence's pages must still be valid ids (e.g. 0).
       lengths: [B] int32 — valid tokens per sequence.
-      gather: True (default) = multi-page gather kernel (G pages per
-        program via explicit DMAs — the production path; see
-        _paged_gather_kernel). False = one-page-per-program BlockSpec
-        kernel (simpler; kept as the didactic/a-b variant).
 
     Returns [B, Hq, D] in q.dtype.
     """
-    if interpret is None:
-        interpret = default_interpret()
-    b, hq, d = q.shape
-    n_pages, hkv, page_size, _ = k_pages.shape
-    max_pages = block_table.shape[1]
-    g = hq // hkv
-    gp = max(8, g)
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
-
-    qg = (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
-    qg = qg.reshape(b, hkv, g, d)
-    if gp != g:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, gp - g), (0, 0)))
-
-    if gather:
-        gpages = _gather_pages_per_split(
-            page_size, max_pages, k_pages.dtype.itemsize
-        )
-        n_splits = -(-max_pages // gpages)
-        span = gpages * page_size
-        kernel = functools.partial(
-            _paged_gather_kernel, page_size=page_size, g_pages=gpages,
-            n_splits=n_splits, n_slots=slots, copy_only=copy_only,
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(b, hkv, n_splits),
-            in_specs=[
-                pl.BlockSpec(
-                    (1, 1, gp, d), lambda bb, h, s, tbl, ln: (bb, h, 0, 0)
-                ),
-                pl.BlockSpec(memory_space=pl.ANY),
-                pl.BlockSpec(memory_space=pl.ANY),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, 1, gp, d), lambda bb, h, s, tbl, ln: (bb, h, 0, 0)
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((slots, span, d), k_pages.dtype),
-                pltpu.VMEM((slots, span, d), v_pages.dtype),
-                pltpu.VMEM((gp, 128), jnp.float32),
-                pltpu.VMEM((gp, 128), jnp.float32),
-                pltpu.VMEM((gp, d), jnp.float32),
-                pltpu.SemaphoreType.DMA((slots, 2, gpages)),
-            ],
-        )
-        out = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((b, hkv, gp, d), jnp.float32),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(
-            block_table.astype(jnp.int32),
-            lengths.astype(jnp.int32),
-            qg, k_pages, v_pages,
-        )
-        return out[:, :, :g].reshape(b, hq, d).astype(q.dtype)
-
-    kernel = functools.partial(
-        _paged_decode_kernel, page_size=page_size, max_pages=max_pages
+    m, l, y = _decode_partials(
+        q, k_pages, v_pages, lengths, block_table=block_table,
+        sm_scale=sm_scale, interpret=interpret,
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(b, hkv, max_pages),
-        in_specs=[
-            pl.BlockSpec((1, 1, gp, d), lambda bb, h, p, tbl, ln: (bb, h, 0, 0)),
-            # the page index comes from the prefetched block table; entries
-            # past the sequence's last live page CLAMP to that page so
-            # consecutive dead steps map to the same block and the pipeline
-            # elides their DMAs (they are compute-skipped anyway)
-            pl.BlockSpec(
-                (1, 1, page_size, d),
-                lambda bb, h, p, tbl, ln: (_live_page(tbl, ln, bb, p, page_size), h, 0, 0),
-            ),
-            pl.BlockSpec(
-                (1, 1, page_size, d),
-                lambda bb, h, p, tbl, ln: (_live_page(tbl, ln, bb, p, page_size), h, 0, 0),
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 1, gp, d), lambda bb, h, p, tbl, ln: (bb, h, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((gp, 128), jnp.float32),
-            pltpu.VMEM((gp, 128), jnp.float32),
-            pltpu.VMEM((gp, d), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, hkv, gp, d), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
+    return _finish(q, m, l, y, False)
+
+
+@functools.partial(jax.jit, static_argnames=("sm_scale", "interpret"))
+def paged_flash_decode_quant(
+    q: jax.Array,
+    k_pages: jax.Array,
+    k_scale_pages: jax.Array,
+    v_pages: jax.Array,
+    v_scale_pages: jax.Array,
+    block_table: jax.Array,
+    lengths: jax.Array,
+    *,
+    sm_scale: float | None = None,
+    interpret: bool | None = None,
+) -> jax.Array:
+    """paged_flash_decode against an 8-bit page pool.
+
+    k_pages/v_pages: [n_pages, Hkv, page_size, D] int8 or float8_e4m3fn;
+    k_scale_pages/v_scale_pages: [n_pages, Hkv, page_size, 1] f32 per-token
+    scales (written by paged_append_quant). Returns [B, Hq, D] in q.dtype.
+    """
+    m, l, y = _decode_partials(
+        q, k_pages, v_pages, lengths, k_scale=k_scale_pages,
+        v_scale=v_scale_pages, block_table=block_table, sm_scale=sm_scale,
         interpret=interpret,
-    )(
-        block_table.astype(jnp.int32),
-        lengths.astype(jnp.int32),
-        qg, k_pages, v_pages,
     )
-    return out[:, :, :g].reshape(b, hq, d).astype(q.dtype)
+    return _finish(q, m, l, y, False)
 
 
-def _paged_extend_kernel(
-    table_ref,   # scalar-prefetch [B, max_pages] int32 page ids
-    newlen_ref,  # scalar-prefetch [B] int32 lengths AFTER the chunk append
-    oldlen_ref,  # scalar-prefetch [B] int32 lengths BEFORE the chunk
-    q_ref,       # [1, 1, ROWS, D] — ROWS = pad8(G * T), row = gi*T + tr
-    *refs,
-    page_size: int,
-    max_pages: int,
-    t_chunk: int,
-    quant: bool = False,
-):
-    if quant:
-        # 8-bit pool: per-token scale rows ride the same page index map;
-        # dequant fused exactly as in _paged_decode_kernel_q (K scale on
-        # the score row, V scale folded into the exp weights)
-        k_ref, ks_ref, v_ref, vs_ref, o_ref, m_scr, l_scr, acc_scr = refs
-    else:
-        k_ref, v_ref, o_ref, m_scr, l_scr, acc_scr = refs
-        ks_ref = vs_ref = None
-    """Multi-token causal extend against the paged pool: the T chunk tokens
-    (already appended to the pages) fold into the q-tile ROW dim next to
-    the GQA group, and each row's causal horizon is its own global position
-    old_len + (row % T). This is the paged verify step for speculative
-    decoding — one kernel scores all spec_k+1 positions of every slot."""
-    b = pl.program_id(0)
-    p = pl.program_id(2)
-    new_len = newlen_ref[b]
-    old_len = oldlen_ref[b]
-
-    @pl.when(p == 0)
-    def _init():
-        m_scr[:] = jnp.full_like(m_scr, NEG_INF)
-        l_scr[:] = jnp.zeros_like(l_scr)
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    live = p * page_size < new_len
-
-    @pl.when(live)
-    def _compute():
-        q = q_ref[0, 0]            # [ROWS, D]
-        k = k_ref[0, 0]
-        v = v_ref[0, 0]
-        if quant:
-            k = k.astype(q.dtype)
-            v = v.astype(q.dtype)
-        rows = q.shape[0]
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        if quant:
-            s = s * ks_ref[0, 0]
-        col = p * page_size + jax.lax.broadcasted_iota(
-            jnp.int32, (rows, page_size), 1
-        )
-        # row r holds chunk token tr = r % T at global position old_len+tr
-        # (padding rows alias a real tr: garbage values, finite positions —
-        # sliced off by the wrapper). Every row sees column 0, so the
-        # running max is finite and masked lanes exp2-flush to exact 0.
-        rowpos = old_len + (
-            jax.lax.broadcasted_iota(jnp.int32, (rows, page_size), 0)
-            % t_chunk
-        )
-        mask = jnp.logical_and(col < new_len, col <= rowpos)
-        s = jnp.where(mask, s, NEG_INF)
-        m_prev = m_scr[:]
-        m_tile = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_tile)
-        scale = jnp.exp2(m_prev - m_next)
-        e = jnp.exp2((s - m_next[:, :1]).astype(v.dtype))
-        l_scr[:] = l_scr[:] * scale + jnp.sum(
-            e, axis=-1, keepdims=True, dtype=jnp.float32
-        )
-        ew = e * vs_ref[0, 0].astype(e.dtype) if quant else e
-        pv = jax.lax.dot_general(
-            ew, v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        acc_scr[:] = acc_scr[:] * scale[:, :1] + pv
-        m_scr[:] = m_next
-
-    @pl.when(p == max_pages - 1)
-    def _finish():
-        l = l_scr[:, :1]
-        safe_l = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, 0] = (acc_scr[:] / safe_l).astype(o_ref.dtype)
+def gather_pages(pages: jax.Array, block_table: jax.Array) -> jax.Array:
+    """Contiguous per-sequence view of a pool: [n_pages, Hkv, page, X] and
+    [B, max_pages] -> [B, Hkv, max_pages * page, X]."""
+    b, max_pages = block_table.shape
+    _, hkv, page, x = pages.shape
+    g = pages[block_table]  # [B, max_pages, Hkv, page, X]
+    return jnp.moveaxis(g, 2, 1).reshape(b, hkv, max_pages * page, x)
 
 
 @functools.partial(jax.jit, static_argnames=("sm_scale", "interpret"))
@@ -500,130 +123,52 @@ def paged_flash_extend(
 
     The chunk's own KV must already be appended to the pages
     (new_lengths == old_lengths + T). Token t of the chunk attends keys
-    [0, old_lengths + t] — exactly the linear engine's ragged `extend`
-    semantics, against pages (the reference has no paged analog; vLLM-style
-    layer per BASELINE north star).
+    [0, old_lengths + t] — the linear engine's ragged `extend` semantics.
 
     Args:
       q: [B, Hq, T, D] — T chunk tokens per sequence.
-      k_pages, v_pages: [n_pages, Hkv, page_size, D] page pool.
+      k_pages, v_pages: [n_pages, Hkv, page_size, D] page pool (8-bit with
+        k_scale_pages/v_scale_pages [n_pages, Hkv, page_size, 1]).
       block_table: [B, max_pages] int32.
       new_lengths / old_lengths: [B] int32 lengths after / before the chunk.
 
     Returns [B, Hq, T, D] in q.dtype.
     """
-    if interpret is None:
-        interpret = default_interpret()
-    b, hq, t, d = q.shape
-    n_pages, hkv, page_size, _ = k_pages.shape
+    k = gather_pages(k_pages, block_table)
+    v = gather_pages(v_pages, block_table)
+    if k_scale_pages is None:
+        return flash_attention_ragged(
+            q, k, v, new_lengths, old_lengths, causal=True,
+            sm_scale=sm_scale, interpret=interpret,
+        )
+    return flash_attention_ragged_kv_quant(
+        q, k, gather_pages(k_scale_pages, block_table), v,
+        gather_pages(v_scale_pages, block_table), new_lengths, old_lengths,
+        causal=True, sm_scale=sm_scale, interpret=interpret,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Appends: XLA scatters into the pool
+# ---------------------------------------------------------------------------
+
+def _slots(block_table, lengths, t, page_size):
+    """(page id, offset) of tokens lengths + [0, t) per row, [B * t] each.
+    A token past its table's capacity goes to the junk page 0: the
+    scheduler never lets a sequence outgrow its allocation, and this keeps
+    a violation from overwriting the sequence's own last page."""
     max_pages = block_table.shape[1]
-    g = hq // hkv
-    rows = g * t
-    rows_p = -(-rows // 8) * 8
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
-
-    qg = (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
-    qg = qg.reshape(b, hkv, rows, d)
-    if rows_p != rows:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, rows_p - rows), (0, 0)))
-
-    quant = k_scale_pages is not None
-    kernel = functools.partial(
-        _paged_extend_kernel, page_size=page_size, max_pages=max_pages,
-        t_chunk=t, quant=quant,
-    )
-
-    def _kv_map(bb, h, p, tbl, nln, oln):
-        return (_live_page(tbl, nln, bb, p, page_size), h, 0, 0)
-
-    def _s_map(bb, h, p, tbl, nln, oln):
-        return (_live_page(tbl, nln, bb, p, page_size), h, 0, 0)
-
-    in_specs = [
-        pl.BlockSpec(
-            (1, 1, rows_p, d), lambda bb, h, p, tbl, nln, oln: (bb, h, 0, 0)
-        ),
-        pl.BlockSpec((1, 1, page_size, d), _kv_map),
-        pl.BlockSpec((1, 1, page_size, d), _kv_map),
-    ]
-    operands = [qg, k_pages, v_pages]
-    if quant:
-        in_specs.insert(2, pl.BlockSpec((1, 1, 1, page_size), _s_map))
-        in_specs.append(pl.BlockSpec((1, 1, 1, page_size), _s_map))
-        operands = [qg, k_pages, k_scale_pages, v_pages, v_scale_pages]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(b, hkv, max_pages),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (1, 1, rows_p, d), lambda bb, h, p, tbl, nln, oln: (bb, h, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((rows_p, 128), jnp.float32),
-            pltpu.VMEM((rows_p, 128), jnp.float32),
-            pltpu.VMEM((rows_p, d), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, hkv, rows_p, d), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(
-        block_table.astype(jnp.int32),
-        new_lengths.astype(jnp.int32),
-        old_lengths.astype(jnp.int32),
-        *operands,
-    )
-    return (
-        out[:, :, :rows].reshape(b, hkv, g, t, d)
-        .reshape(b, hq, t, d).astype(q.dtype)
-    )
-
-
-def paged_append(
-    k_pages: jax.Array,
-    v_pages: jax.Array,
-    k_new: jax.Array,   # [B, Hkv, D]
-    v_new: jax.Array,
-    block_table: jax.Array,  # [B, max_pages]
-    lengths: jax.Array,      # [B] length BEFORE the append
-) -> tuple[jax.Array, jax.Array]:
-    """Append one token per sequence into its current page (the page must
-    already be allocated by the PagePool). Pure-XLA scatter; donation keeps
-    it in place under jit."""
-    page_size = k_pages.shape[2]
-    max_pages = block_table.shape[1]
-    page_slot = lengths // page_size          # which entry of the table
-    offset = lengths % page_size              # position within the page
-    b = k_new.shape[0]
+    pos = lengths[:, None] + jnp.arange(t, dtype=lengths.dtype)[None, :]
+    slot = pos // page_size
     page_ids = jnp.take_along_axis(
-        block_table, jnp.clip(page_slot, 0, max_pages - 1)[:, None], axis=1
-    )[:, 0]
-    # capacity guard: a sequence past its table's capacity would otherwise
-    # silently overwrite ITS OWN last page (take_along_axis clamps). Redirect
-    # overflow writes to the reserved junk page 0 instead — the decode output
-    # for that sequence is already truncated (the kernel attends max_pages
-    # pages) and the host-side scheduler is responsible for never letting a
-    # sequence outgrow its allocation; this keeps the failure contained.
-    page_ids = jnp.where(page_slot >= max_pages, 0, page_ids)
+        block_table, jnp.clip(slot, 0, max_pages - 1), axis=1
+    )
+    page_ids = jnp.where(slot >= max_pages, 0, page_ids)
+    return page_ids.reshape(-1), (pos % page_size).reshape(-1)
 
-    def write(pages, new):
-        def one(pages, pid, off, val):
-            return jax.lax.dynamic_update_slice(
-                pages, val[None, :, None].astype(pages.dtype),
-                (pid, 0, off, 0),
-            )
 
-        for i in range(b):  # unrolled: per-slot dynamic_update_slice
-            pages = one(pages, page_ids[i], offset[i], new[i])
-        return pages
-
-    return write(k_pages, k_new), write(v_pages, v_new)
+def _quantizer(dtype):
+    return quantize_int8 if dtype == jnp.int8 else quantize_fp8_tokenwise
 
 
 def paged_append_chunk(
@@ -634,32 +179,33 @@ def paged_append_chunk(
     block_table: jax.Array,  # [B, max_pages]
     lengths: jax.Array,      # [B] length BEFORE the append
 ) -> tuple[jax.Array, jax.Array]:
-    """Append T tokens per sequence in ONE scatter per pool (advisor r2:
-    T sequential paged_append calls made XLA materialize O(T) full-pool
-    functional updates per layer on the speculative-verify path). Each
-    token's (page_id, offset) is computed up front; tokens may straddle
-    page boundaries freely since the scatter is per-token. Same capacity
-    guard as paged_append (overflow redirects to the junk page 0)."""
-    page_size = k_pages.shape[2]
-    max_pages = block_table.shape[1]
-    b, t = k_new.shape[:2]
-    pos = lengths[:, None] + jnp.arange(t, dtype=lengths.dtype)[None, :]
-    page_slot = pos // page_size                      # [B, T]
-    offset = pos % page_size
-    page_ids = jnp.take_along_axis(
-        block_table, jnp.clip(page_slot, 0, max_pages - 1), axis=1
-    )
-    page_ids = jnp.where(page_slot >= max_pages, 0, page_ids)
-    flat_pid = page_ids.reshape(-1)
-    flat_off = offset.reshape(-1)
+    """Append T tokens per sequence in one scatter per pool; tokens may
+    straddle page boundaries."""
+    b, t, hkv, d = k_new.shape
+    pid, off = _slots(block_table, lengths, t, k_pages.shape[2])
 
     def write(pages, new):
-        vals = new.reshape(b * t, new.shape[2], new.shape[3])
-        # no unique_indices: capacity-overflow rows can collide on the
-        # junk page 0, which must stay defined-garbage, not UB
-        return pages.at[flat_pid, :, flat_off, :].set(vals.astype(pages.dtype))
+        # no unique_indices: overflow rows can collide on the junk page 0
+        vals = new.reshape(b * t, hkv, new.shape[3]).astype(pages.dtype)
+        return pages.at[pid, :, off, :].set(vals)
 
     return write(k_pages, k_new), write(v_pages, v_new)
+
+
+def paged_append(
+    k_pages: jax.Array,
+    v_pages: jax.Array,
+    k_new: jax.Array,   # [B, Hkv, D]
+    v_new: jax.Array,
+    block_table: jax.Array,  # [B, max_pages]
+    lengths: jax.Array,      # [B] length BEFORE the append
+) -> tuple[jax.Array, jax.Array]:
+    """Append one token per sequence into its current page (allocated by
+    the PagePool)."""
+    return paged_append_chunk(
+        k_pages, v_pages, k_new[:, None], v_new[:, None], block_table,
+        lengths,
+    )
 
 
 def paged_append_chunk_quant(
@@ -672,46 +218,40 @@ def paged_append_chunk_quant(
     block_table: jax.Array,  # [B, max_pages]
     lengths: jax.Array,      # [B] length BEFORE the append
 ):
-    """paged_append_chunk into an 8-bit pool (round 5: the speculative
-    verify chunk over a quantized pool): per-token symmetric quantization
-    of the whole T-token chunk, ONE scatter per value pool + one per
-    lane-major scale pool. Same capacity guard (overflow -> junk page 0).
+    """paged_append_chunk into an 8-bit pool: per-token symmetric
+    quantization, one scatter per value pool and one per scale pool.
     Returns (k_pages, k_scale_pages, v_pages, v_scale_pages)."""
-    from flashattention_kernel_project_tpu.ops.quant import (
-        quantize_fp8_tokenwise,
-        quantize_int8,
-    )
-
-    page_size = k_pages.shape[2]
-    max_pages = block_table.shape[1]
-    b, t = k_new.shape[:2]
-    pos = lengths[:, None] + jnp.arange(t, dtype=lengths.dtype)[None, :]
-    page_slot = pos // page_size
-    offset = pos % page_size
-    page_ids = jnp.take_along_axis(
-        block_table, jnp.clip(page_slot, 0, max_pages - 1), axis=1
-    )
-    page_ids = jnp.where(page_slot >= max_pages, 0, page_ids)
-    flat_pid = page_ids.reshape(-1)
-    flat_off = offset.reshape(-1)
-
-    quantizer = (
-        quantize_int8 if k_pages.dtype == jnp.int8 else quantize_fp8_tokenwise
-    )
+    b, t, hkv, d = k_new.shape
+    pid, off = _slots(block_table, lengths, t, k_pages.shape[2])
+    quantizer = _quantizer(k_pages.dtype)
 
     def write(pages, spages, new):
         qv, scale = quantizer(new, axis=-1)  # [B, T, Hkv, D], [B, T, Hkv, 1]
-        vals = qv.reshape(b * t, new.shape[2], new.shape[3])
-        sc = scale.reshape(b * t, new.shape[2]).astype(jnp.float32)
-        pages = pages.at[flat_pid, :, flat_off, :].set(
-            vals.astype(pages.dtype)
-        )
-        spages = spages.at[flat_pid, :, 0, flat_off].set(sc)
-        return pages, spages
+        vals = qv.reshape(b * t, hkv, new.shape[3]).astype(pages.dtype)
+        sc = scale.reshape(b * t, hkv, 1).astype(jnp.float32)
+        return (pages.at[pid, :, off, :].set(vals),
+                spages.at[pid, :, off, :].set(sc))
 
     k_pages, k_scale_pages = write(k_pages, k_scale_pages, k_new)
     v_pages, v_scale_pages = write(v_pages, v_scale_pages, v_new)
     return k_pages, k_scale_pages, v_pages, v_scale_pages
+
+
+def paged_append_quant(
+    k_pages: jax.Array,
+    k_scale_pages: jax.Array,
+    v_pages: jax.Array,
+    v_scale_pages: jax.Array,
+    k_new: jax.Array,   # [B, Hkv, D] full precision — quantized here
+    v_new: jax.Array,
+    block_table: jax.Array,
+    lengths: jax.Array,
+) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
+    """paged_append into an 8-bit pool (one token per sequence)."""
+    return paged_append_chunk_quant(
+        k_pages, k_scale_pages, v_pages, v_scale_pages, k_new[:, None],
+        v_new[:, None], block_table, lengths,
+    )
 
 
 class PagePool:
@@ -719,7 +259,7 @@ class PagePool:
 
     The device arrays are externally owned; the pool only hands out page
     ids. Page 0 is reserved as the junk page that padding table entries
-    point at (the kernel never reads it for live tokens)."""
+    point at (the kernels never read it for live tokens)."""
 
     def __init__(self, n_pages: int):
         assert n_pages >= 2
@@ -746,461 +286,3 @@ class PagePool:
         t = np.zeros(max_pages, np.int32)
         t[: len(pages)] = pages
         return t
-
-
-# ---------------------------------------------------------------------------
-# Quantized page pool: int8/fp8 pages + per-token scale pages, dequant fused
-# into the page load (the linear-cache analog is flash_decode_int8; same
-# discipline — K's scale on the score row post-matmul, V's scale folded into
-# the exp weights, MXU matmuls unscaled).
-# ---------------------------------------------------------------------------
-
-def _paged_decode_kernel_q(
-    table_ref,  # scalar-prefetch [B, max_pages] int32 page ids
-    len_ref,    # scalar-prefetch [B] int32 sequence lengths
-    q_ref,      # [1, 1, GP, D]
-    k_ref,      # [1, 1, page, D] int8/fp8 — page selected by the index map
-    ks_ref,     # [1, 1, 1, page] f32 per-token K scale (lane-major)
-    v_ref,
-    vs_ref,
-    o_ref,
-    m_scr,
-    l_scr,
-    acc_scr,
-    *,
-    page_size: int,
-    max_pages: int,
-):
-    b = pl.program_id(0)
-    p = pl.program_id(2)
-    length = len_ref[b]
-
-    @pl.when(p == 0)
-    def _init():
-        m_scr[:] = jnp.full_like(m_scr, NEG_INF)
-        l_scr[:] = jnp.zeros_like(l_scr)
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    live = p * page_size < length
-
-    @pl.when(live)
-    def _compute():
-        q = q_ref[0, 0]                  # [GP, D]
-        k = k_ref[0, 0].astype(q.dtype)  # 8-bit page cast in VMEM
-        v = v_ref[0, 0].astype(q.dtype)
-        ks = ks_ref[0, 0]                # [1, page] f32
-        vs = vs_ref[0, 0].astype(q.dtype)
-        gp = q.shape[0]
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ) * ks
-        col = p * page_size + jax.lax.broadcasted_iota(
-            jnp.int32, (gp, page_size), 1
-        )
-        s = jnp.where(col < length, s, NEG_INF)
-        m_prev = m_scr[:]
-        m_tile = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_tile)
-        scale = jnp.exp2(m_prev - m_next)
-        e = jnp.exp2((s - m_next[:, :1]).astype(v.dtype))
-        l_scr[:] = l_scr[:] * scale + jnp.sum(
-            e, axis=-1, keepdims=True, dtype=jnp.float32
-        )
-        pv = jax.lax.dot_general(
-            e * vs, v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        acc_scr[:] = acc_scr[:] * scale[:, :1] + pv
-        m_scr[:] = m_next
-
-    @pl.when(p == max_pages - 1)
-    def _finish():
-        l = l_scr[:, :1]
-        safe_l = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, 0] = (acc_scr[:] / safe_l).astype(o_ref.dtype)
-
-
-def _paged_gather_kernel_q(
-    table_ref,
-    len_ref,
-    q_ref,      # [1, 1, GP, D] (int8 with per-row scale when q_int8)
-    *rest,
-    page_size: int,
-    g_pages: int,
-    n_splits: int,
-    n_slots: int = 2,
-    q_int8: bool = False,
-    compute_dtype=jnp.bfloat16,
-):
-    if q_int8:
-        (qs_ref, k_hbm, ks_ref, v_hbm, vs_ref, o_ref,
-         k_buf, v_buf, m_scr, l_scr, acc_scr, sem) = rest
-    else:
-        (k_hbm, ks_ref, v_hbm, vs_ref, o_ref,
-         k_buf, v_buf, m_scr, l_scr, acc_scr, sem) = rest
-        qs_ref = None
-    """8-bit variant of _paged_gather_kernel. Only the VALUE pages are
-    kernel-gathered: the lane-major scale rows are 512 B/page, and 32 tiny
-    descriptors per split measured ~1.1 us/program of pure issue cost
-    (int8 read 0.33x roofline vs bf16's 0.76x). The wrapper pre-gathers
-    the scales with one XLA take over the block table (a ~1 MB tensor for
-    the whole batch) and feeds them through the regular BlockSpec
-    pipeline. Dequant stays fused: K scale on the score tile, V scale
-    folded into the exp weights."""
-    b = pl.program_id(0)
-    h = pl.program_id(1)
-    s = pl.program_id(2)
-    length = len_ref[b]
-    span = g_pages * page_size
-
-    # (A GLOBAL slot rotation prefetching across (b, h) boundaries — grid
-    # step g = (b*Hkv + h)*n_splits + s, each program issuing split
-    # g + depth with dynamic (b', h') descriptor indices — was built and
-    # measured in round 5: 142.0 us vs 135.2 for this per-(b,h) form at
-    # the 8x8K int8 rung, worse at every slot depth. The per-descriptor
-    # div/rem scalar chains cost more than the 32 boundary-warmup stalls
-    # they remove; reverted.)
-    def dmas(s_idx, slot_, i):
-        pid = _live_page(table_ref, len_ref, b, s_idx * g_pages + i,
-                         page_size)
-        sl = pl.ds(i * page_size, page_size)
-        return (
-            pltpu.make_async_copy(
-                k_hbm.at[pid, h], k_buf.at[slot_, sl], sem.at[slot_, 0, i]),
-            pltpu.make_async_copy(
-                v_hbm.at[pid, h], v_buf.at[slot_, sl], sem.at[slot_, 1, i]),
-        )
-
-    def issue(s_idx, slot_):
-        for i in range(g_pages):
-            for c in dmas(s_idx, slot_, i):
-                c.start()
-
-    depth = n_slots - 1
-    slot = jax.lax.rem(s, n_slots)
-
-    @pl.when(s == 0)
-    def _init():
-        m_scr[:] = jnp.full_like(m_scr, NEG_INF)
-        l_scr[:] = jnp.zeros_like(l_scr)
-        acc_scr[:] = jnp.zeros_like(acc_scr)
-        issue(0, 0)
-        for i in range(1, min(depth, n_splits)):
-            pl.when(i * span < length)(
-                functools.partial(issue, i, i % n_slots)
-            )
-
-    @pl.when(jnp.logical_and(
-        s + depth < n_splits, (s + depth) * span < length
-    ))
-    def _next():
-        issue(s + depth, jax.lax.rem(s + depth, n_slots))
-
-    live = s * span < length
-
-    @pl.when(jnp.logical_or(s == 0, live))
-    def _wait():
-        for i in range(g_pages):
-            for c in dmas(s, slot, i):
-                c.wait()
-
-    @pl.when(live)
-    def _compute():
-        q = q_ref[0, 0]
-        v = v_buf[slot].astype(compute_dtype)
-        ks = ks_ref[0, 0]                  # [1, span] f32
-        vs = vs_ref[0, 0].astype(compute_dtype)
-        gp = q.shape[0]
-        if q_int8:
-            # VERDICT r4 task 4: the K-side dequant cast was ~half of the
-            # per-split VPU chain sitting unoverlapped (the split's critical
-            # path is VPU, not DMA — slots 2/3/4 measured flat). With q
-            # quantized per-row (wrapper), QK^T runs as a PURE int8 MXU dot
-            # straight off the gathered page buffer: no K cast at all, and
-            # the exact int32 scores dequantize on the score row where the
-            # per-token ks multiply already lives (one extra [gp, span]
-            # multiply by the per-row q scale).
-            st = jax.lax.dot_general(
-                q, k_buf[slot], (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32) * ks * qs_ref[0, 0]
-        else:
-            k = k_buf[slot].astype(q.dtype)
-            st = jax.lax.dot_general(
-                q, k, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            ) * ks
-        col = s * span + jax.lax.broadcasted_iota(jnp.int32, (gp, span), 1)
-        st = jnp.where(col < length, st, NEG_INF)
-        m_prev = m_scr[:]
-        m_tile = jnp.max(st, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_tile)
-        scale = jnp.exp2(m_prev - m_next)
-        e = jnp.exp2((st - m_next[:, :1]).astype(v.dtype))
-        l_scr[:] = l_scr[:] * scale + jnp.sum(
-            e, axis=-1, keepdims=True, dtype=jnp.float32
-        )
-        pv = jax.lax.dot_general(
-            e * vs, v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        acc_scr[:] = acc_scr[:] * scale[:, :1] + pv
-        m_scr[:] = m_next
-
-    @pl.when(s == n_splits - 1)
-    def _finish():
-        l = l_scr[:, :1]
-        safe_l = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, 0] = (acc_scr[:] / safe_l).astype(o_ref.dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("sm_scale", "interpret", "gather", "slots", "q_int8"),
-)
-def paged_flash_decode_quant(
-    q: jax.Array,
-    k_pages: jax.Array,
-    k_scale_pages: jax.Array,
-    v_pages: jax.Array,
-    v_scale_pages: jax.Array,
-    block_table: jax.Array,
-    lengths: jax.Array,
-    *,
-    sm_scale: float | None = None,
-    interpret: bool | None = None,
-    gather: bool = True,
-    slots: int = 2,
-    q_int8: bool | None = None,
-) -> jax.Array:
-    """paged_flash_decode against an 8-bit page pool.
-
-    k_pages/v_pages: [n_pages, Hkv, page_size, D] int8 OR float8_e4m3fn;
-    k_scale_pages/v_scale_pages: [n_pages, Hkv, 1, page_size] f32 — the
-    per-token scales stored LANE-MAJOR so the kernel broadcasts one scale
-    row across the score tile (write them with paged_append_quant). The
-    8-bit pages halve the decode's dominant HBM stream; dequant never
-    leaves the kernel. Returns [B, Hq, D] in q.dtype.
-    """
-    if interpret is None:
-        interpret = default_interpret()
-    b, hq, d = q.shape
-    n_pages, hkv, page_size, _ = k_pages.shape
-    assert k_scale_pages.shape == (n_pages, hkv, 1, page_size), (
-        k_scale_pages.shape
-    )
-    max_pages = block_table.shape[1]
-    g = hq // hkv
-    gp = max(8, g)
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
-
-    if q_int8 is None:
-        # Default OFF (round-5 measurement): quantizing q per-row to run
-        # QK as a pure int8 MXU dot removes the K-side dequant cast and
-        # buys 0.574 -> 0.596x of the HBM roofline at the 8x8K rung
-        # (142.8 -> 137.5 us) — but the extra rounding roughly DOUBLES
-        # the output error vs the dequantized-cache oracle (4-5e-3 ->
-        # ~1.1e-2 rel-L2 on-chip), straddling the repo's 1e-2 numerics
-        # gate. Serving stacks that accept int8-q noise can opt in.
-        q_int8 = False
-    q_int8 = bool(q_int8) and bool(gather) and k_pages.dtype == jnp.int8
-
-    qf = q.astype(jnp.float32) * (sm_scale * _LOG2E)
-    qg = qf.astype(q.dtype).reshape(b, hkv, g, d)
-    if gp != g:
-        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, gp - g), (0, 0)))
-    qs_rows = None
-    if q_int8:
-        # per-row symmetric int8 quantization of the folded q (scores stay
-        # exact int32 up to this one rounding; the row scale rides the
-        # score dequant multiply in-kernel)
-        qf = qf.reshape(b, hkv, g, d)
-        if gp != g:
-            qf = jnp.pad(qf, ((0, 0), (0, 0), (0, gp - g), (0, 0)))
-        qmax = jnp.max(jnp.abs(qf), axis=-1, keepdims=True)
-        qs_rows = jnp.where(qmax == 0.0, 1.0, qmax / 127.0)
-        qg = jnp.round(qf / qs_rows).clip(-127, 127).astype(jnp.int8)
-
-    if gather:
-        gpages = _gather_pages_per_split(page_size, max_pages, k_pages.dtype.itemsize)
-        n_splits = -(-max_pages // gpages)
-        span = gpages * page_size
-        # pre-gather the per-token scale rows (512 B/page — too small for
-        # per-page DMAs; see the kernel docstring): one XLA take over the
-        # table, [B, Hkv, 1, n_splits*span], padded cols hit masked lanes
-        def _scales(sp):
-            g_ = sp[block_table]  # [B, max_pages, Hkv, 1, page]
-            g_ = g_.transpose(0, 2, 3, 1, 4).reshape(
-                b, hkv, 1, max_pages * page_size
-            )
-            pad = n_splits * span - max_pages * page_size
-            if pad:
-                g_ = jnp.pad(g_, ((0, 0), (0, 0), (0, 0), (0, pad)))
-            return g_
-
-        ksg, vsg = _scales(k_scale_pages), _scales(v_scale_pages)
-        kernel = functools.partial(
-            _paged_gather_kernel_q, page_size=page_size, g_pages=gpages,
-            n_splits=n_splits, n_slots=slots, q_int8=q_int8,
-            compute_dtype=q.dtype,
-        )
-        in_specs = [
-            pl.BlockSpec(
-                (1, 1, gp, d), lambda bb, h, s, tbl, ln: (bb, h, 0, 0)
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(
-                (1, 1, 1, span), lambda bb, h, s, tbl, ln: (bb, h, 0, s)
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(
-                (1, 1, 1, span), lambda bb, h, s, tbl, ln: (bb, h, 0, s)
-            ),
-        ]
-        operands = [
-            block_table.astype(jnp.int32), lengths.astype(jnp.int32),
-            qg, k_pages, ksg, v_pages, vsg,
-        ]
-        if q_int8:
-            in_specs.insert(1, pl.BlockSpec(
-                (1, 1, gp, 1), lambda bb, h, s, tbl, ln: (bb, h, 0, 0)
-            ))
-            operands.insert(3, qs_rows)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(b, hkv, n_splits),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec(
-                (1, 1, gp, d), lambda bb, h, s, tbl, ln: (bb, h, 0, 0)
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((slots, span, d), k_pages.dtype),
-                pltpu.VMEM((slots, span, d), v_pages.dtype),
-                pltpu.VMEM((gp, 128), jnp.float32),
-                pltpu.VMEM((gp, 128), jnp.float32),
-                pltpu.VMEM((gp, d), jnp.float32),
-                pltpu.SemaphoreType.DMA((slots, 2, gpages)),
-            ],
-        )
-        out = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((b, hkv, gp, d), jnp.float32),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(*operands)
-        return out[:, :, :g].reshape(b, hq, d).astype(q.dtype)
-
-    kernel = functools.partial(
-        _paged_decode_kernel_q, page_size=page_size, max_pages=max_pages
-    )
-
-    def _page_map(bb, h, p, tbl, ln):
-        return (_live_page(tbl, ln, bb, p, page_size), h, 0, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(b, hkv, max_pages),
-        in_specs=[
-            pl.BlockSpec((1, 1, gp, d), lambda bb, h, p, tbl, ln: (bb, h, 0, 0)),
-            pl.BlockSpec((1, 1, page_size, d), _page_map),
-            pl.BlockSpec((1, 1, 1, page_size), _page_map),
-            pl.BlockSpec((1, 1, page_size, d), _page_map),
-            pl.BlockSpec((1, 1, 1, page_size), _page_map),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 1, gp, d), lambda bb, h, p, tbl, ln: (bb, h, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((gp, 128), jnp.float32),
-            pltpu.VMEM((gp, 128), jnp.float32),
-            pltpu.VMEM((gp, d), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, hkv, gp, d), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(
-        block_table.astype(jnp.int32),
-        lengths.astype(jnp.int32),
-        qg, k_pages, k_scale_pages, v_pages, v_scale_pages,
-    )
-    return out[:, :, :g].reshape(b, hq, d).astype(q.dtype)
-
-
-def paged_append_quant(
-    k_pages: jax.Array,
-    k_scale_pages: jax.Array,
-    v_pages: jax.Array,
-    v_scale_pages: jax.Array,
-    k_new: jax.Array,   # [B, Hkv, D] full precision — quantized here
-    v_new: jax.Array,
-    block_table: jax.Array,
-    lengths: jax.Array,
-) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """paged_append into an 8-bit pool: per-token symmetric quantization of
-    the new token, values into the 8-bit pages, scales into the lane-major
-    scale pages. Same capacity guard as paged_append."""
-    page_size = k_pages.shape[2]
-    max_pages = block_table.shape[1]
-    page_slot = lengths // page_size
-    offset = lengths % page_size
-    b = k_new.shape[0]
-    page_ids = jnp.take_along_axis(
-        block_table, jnp.clip(page_slot, 0, max_pages - 1)[:, None], axis=1
-    )[:, 0]
-    page_ids = jnp.where(page_slot >= max_pages, 0, page_ids)
-
-    from flashattention_kernel_project_tpu.ops.quant import (
-        quantize_fp8_tokenwise,
-        quantize_int8,
-    )
-
-    quantizer = (
-        quantize_int8 if k_pages.dtype == jnp.int8 else quantize_fp8_tokenwise
-    )
-
-    def _q(x):  # [B, Hkv, D] -> (8-bit values, scale [B, Hkv])
-        qv, scale = quantizer(x, axis=-1)
-        return qv.astype(k_pages.dtype), scale[..., 0]
-
-    kq, k_s = _q(k_new)
-    vq, v_s = _q(v_new)
-
-    def write(pages, new):
-        def one(pages, pid, off, val):
-            return jax.lax.dynamic_update_slice(
-                pages, val[None, :, None].astype(pages.dtype),
-                (pid, 0, off, 0),
-            )
-
-        for i in range(b):
-            pages = one(pages, page_ids[i], offset[i], new[i])
-        return pages
-
-    def write_scale(pages, new):  # pages [n, Hkv, 1, page]; new [B, Hkv]
-        def one(pages, pid, off, val):
-            return jax.lax.dynamic_update_slice(
-                pages, val[None, :, None, None].astype(pages.dtype),
-                (pid, 0, 0, off),
-            )
-
-        for i in range(b):
-            pages = one(pages, page_ids[i], offset[i], new[i])
-        return pages
-
-    return (
-        write(k_pages, kq),
-        write_scale(k_scale_pages, k_s),
-        write(v_pages, vq),
-        write_scale(v_scale_pages, v_s),
-    )

@@ -1,31 +1,16 @@
-"""Quantization paths: INT8/FP8 weight-only matmul and quantized KV cache.
+"""Quantizers for 8-bit weights and the 8-bit KV cache.
 
-No reference analog (the CUDA repo's fp16 WMMA pipeline stands in for these —
-BASELINE.json north star). Design:
-
-  * weight-only INT8: weights stored int8 with per-output-column scales;
-    dequant is folded into the matmul epilogue (scale applied to the fp32
-    accumulator on the last K step — the same slot where the reference fuses
-    bias/ReLU, tensorcore_gemm_fused_epilogue.cu:91-128).
-  * KV-cache INT8/FP8: per-token scales; dequant fused into the attention
-    kernel's K/V load stage (the slot where the reference does cp.async).
-    Decode is HBM-bandwidth-bound, so halving/quartering KV bytes is the
-    whole game; the scores matmul runs in bf16 after an in-VMEM cast.
-  * numerics gate: <=1e-2 max-abs vs an fp32 CPU reference at the same
-    bit-width (BASELINE.md).
+  * weights: int8 or fp8 (e4m3) with per-output-column scales; the model's
+    projections dequantise in XLA (models/engine.py `_proj`).
+  * KV cache: per-token scales; the attention kernels dequantise each tile
+    after its load, so the cache crosses device memory in 8 bits. Decode is
+    bandwidth-bound, so halving the KV bytes is the whole game.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from flashattention_kernel_project_tpu.ops.gemm import _pad_to
-from flashattention_kernel_project_tpu.utils.platform import default_interpret
 
 
 def quantize_int8(x: jax.Array, axis: int = -1) -> tuple[jax.Array, jax.Array]:
@@ -65,255 +50,14 @@ def dequantize_fp8(q: jax.Array, scale: jax.Array, dtype=jnp.float32) -> jax.Arr
     return (q.astype(jnp.float32) * scale).astype(dtype)
 
 
-# ---------------------------------------------------------------------------
-# Weight-only INT8 matmul: bf16 activations x int8 weights, fused dequant
-# ---------------------------------------------------------------------------
-
-def _matmul_w8_kernel(x_ref, w_ref, scale_ref, o_ref, acc_ref, *, n_k: int):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    # Per-column scale lands on the fp32 accumulator at the end, so the
-    # MXU runs an unscaled matmul. int8 tiles cast to bf16 in-VMEM; fp8
-    # tiles feed the dot DIRECTLY — Mosaic promotes fp8 operands inside
-    # the matmul at the full bf16 rate, while an explicit fp8->bf16 cast
-    # forces a path that halves throughput (measured on-chip 2026-08-20:
-    # cast 86.8 TF vs direct 174.3 TF at 4096^3; the standalone VPU cast
-    # itself is free at 28 TB/s — the slowdown is in the dot's lowering
-    # after a cast, docs/perf_journal.md r3).
-    w = w_ref[:]
-    if w.dtype == jnp.int8:
-        w = w.astype(jnp.bfloat16)
-    acc_ref[:] += jnp.dot(
-        x_ref[:].astype(jnp.bfloat16), w, preferred_element_type=jnp.float32
-    )
-
-    @pl.when(k == n_k - 1)
-    def _():
-        o_ref[:] = (acc_ref[:] * scale_ref[:].astype(jnp.float32)).astype(o_ref.dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("block_m", "block_n", "block_k", "out_dtype", "interpret"),
-)
-def matmul_int8_weights(
-    x: jax.Array,
-    w_q: jax.Array,
-    w_scale: jax.Array,
-    *,
-    block_m: int = 1024,
-    block_n: int = 1024,
-    block_k: int = 512,
-    out_dtype=jnp.float32,
-    interpret: bool | None = None,
-) -> jax.Array:
-    """out = x @ (w_q * w_scale) with dequant fused into the epilogue.
-
-    x: [M, K] (any float dtype), w_q: [K, N] int8, w_scale: [1, N] f32.
-    """
-    if interpret is None:
-        interpret = default_interpret()
-    m, k = x.shape
-    _, n = w_q.shape
-    assert w_scale.shape == (1, n), w_scale.shape
-    block_m = min(block_m, m)
-    block_n = min(block_n, n)
-    block_k = min(block_k, k)
-    x = _pad_to(x, (block_m, block_k))
-    w_q = _pad_to(w_q, (block_k, block_n))
-    w_scale = _pad_to(w_scale, (1, block_n))
-    mp, kp = x.shape
-    np_ = w_q.shape[1]
-    n_k = kp // block_k
-
-    out = pl.pallas_call(
-        functools.partial(_matmul_w8_kernel, n_k=n_k),
-        grid=(mp // block_m, np_ // block_n, n_k),
-        in_specs=[
-            pl.BlockSpec((block_m, block_k), lambda i, j, kk: (i, kk)),
-            pl.BlockSpec((block_k, block_n), lambda i, j, kk: (kk, j)),
-            pl.BlockSpec((1, block_n), lambda i, j, kk: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((block_m, block_n), lambda i, j, kk: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((mp, np_), out_dtype),
-        scratch_shapes=[pltpu.VMEM((block_m, block_n), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(x, w_q, w_scale)
-    return out[:m, :n]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("block_m", "block_n", "block_k", "out_dtype", "interpret"),
-)
-def matmul_fp8_weights(
-    x: jax.Array,
-    w_q: jax.Array,
-    w_scale: jax.Array,
-    *,
-    block_m: int = 1024,
-    block_n: int = 1024,
-    block_k: int = 512,
-    out_dtype=jnp.float32,
-    interpret: bool | None = None,
-) -> jax.Array:
-    """out = x @ (w_q * w_scale), w_q stored FP8 (e4m3) — the FP8 half of
-    BASELINE's "INT8/FP8 weight-only" north star, sharing the int8 path's
-    kernel: fp8 tile cast to bf16 in VMEM (v5e has no fp8 MXU mode; the win
-    is the halved weight HBM stream), per-column scale on the fp32
-    accumulator in the epilogue — the reference's fused-epilogue slot
-    (tensorcore_gemm_fused_epilogue.cu:91-128).
-
-    x: [M, K] (any float dtype), w_q: [K, N] float8_e4m3fn,
-    w_scale: [1, N] f32 (see quantize_fp8_weights).
-    """
-    assert w_q.dtype == jnp.float8_e4m3fn, w_q.dtype
-    if interpret is None:
-        interpret = default_interpret()
-    m, k = x.shape
-    _, n = w_q.shape
-    assert w_scale.shape == (1, n), w_scale.shape
-    block_m = min(block_m, m)
-    block_n = min(block_n, n)
-    block_k = min(block_k, k)
-    x = _pad_to(x, (block_m, block_k))
-    w_q = _pad_to(w_q, (block_k, block_n))
-    w_scale = _pad_to(w_scale, (1, block_n))
-    mp, kp = x.shape
-    np_ = w_q.shape[1]
-    n_k = kp // block_k
-
-    out = pl.pallas_call(
-        functools.partial(_matmul_w8_kernel, n_k=n_k),
-        grid=(mp // block_m, np_ // block_n, n_k),
-        in_specs=[
-            pl.BlockSpec((block_m, block_k), lambda i, j, kk: (i, kk)),
-            pl.BlockSpec((block_k, block_n), lambda i, j, kk: (kk, j)),
-            pl.BlockSpec((1, block_n), lambda i, j, kk: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((block_m, block_n), lambda i, j, kk: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((mp, np_), out_dtype),
-        scratch_shapes=[pltpu.VMEM((block_m, block_n), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * np_ * kp,
-            bytes_accessed=mp * kp * 2 + kp * np_
-            + mp * np_ * jnp.dtype(out_dtype).itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(x, w_q, w_scale)
-    return out[:m, :n]
-
-
 def quantize_fp8_weights(w: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """Per-output-column FP8 (e4m3) weight quantization for
-    matmul_fp8_weights: w [K, N] -> (w_q fp8 [K, N], scale f32 [1, N])."""
+    """Per-output-column FP8 (e4m3) weight quantization:
+    w [K, N] -> (w_q fp8 [K, N], scale f32 [1, N])."""
     return quantize_fp8_tokenwise(w, axis=0)
 
 
-def _matmul_i8_kernel(a_ref, b_ref, as_ref, bs_ref, o_ref, acc_ref, *, n_k):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    # int8 x int8 on the MXU at 2x the bf16 rate, exact int32 accumulate
-    acc_ref[:] += jax.lax.dot_general(
-        a_ref[:], b_ref[:], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-
-    @pl.when(k == n_k - 1)
-    def _():
-        o_ref[:] = (
-            acc_ref[:].astype(jnp.float32) * as_ref[:] * bs_ref[:]
-        ).astype(o_ref.dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("block_m", "block_n", "block_k", "out_dtype", "interpret"),
-)
-def matmul_int8(
-    a_q: jax.Array,
-    a_scale: jax.Array,
-    b_q: jax.Array,
-    b_scale: jax.Array,
-    *,
-    block_m: int = 1024,
-    block_n: int = 1024,
-    block_k: int = 512,
-    out_dtype=jnp.float32,
-    interpret: bool | None = None,
-) -> jax.Array:
-    """Fully-quantized GEMM: BOTH operands int8 on the MXU (v5e: 394 TOPS
-    int8 vs 197 TFLOP/s bf16 — the 2x rung the reference's fp16 WMMA
-    pipeline stands in for, per the BASELINE north star). The K-loop
-    accumulates EXACTLY in int32 (no drift: |a||b|K <= 127*127*K < 2^31
-    for K < 133k); the only error is the input quantization itself.
-    Per-row a_scale [M, 1] and per-column b_scale [1, N] dequantize in the
-    epilogue, once per output element.
-
-    a_q: [M, K] int8, b_q: [K, N] int8. Returns [M, N] out_dtype ==
-    dequant(a_q) @ dequant(b_q) to fp32 rounding.
-    """
-    if interpret is None:
-        interpret = default_interpret()
-    m, k = a_q.shape
-    k2, n = b_q.shape
-    assert k == k2, (a_q.shape, b_q.shape)
-    assert a_scale.shape == (m, 1), a_scale.shape
-    assert b_scale.shape == (1, n), b_scale.shape
-    block_m = min(block_m, m)
-    block_n = min(block_n, n)
-    block_k = min(block_k, k)
-    a_q = _pad_to(a_q, (block_m, block_k))
-    b_q = _pad_to(b_q, (block_k, block_n))
-    a_scale = _pad_to(a_scale, (block_m, 1))
-    b_scale = _pad_to(b_scale, (1, block_n))
-    mp, kp = a_q.shape
-    np_ = b_q.shape[1]
-    n_k = kp // block_k
-
-    out = pl.pallas_call(
-        functools.partial(_matmul_i8_kernel, n_k=n_k),
-        grid=(mp // block_m, np_ // block_n, n_k),
-        in_specs=[
-            pl.BlockSpec((block_m, block_k), lambda i, j, kk: (i, kk)),
-            pl.BlockSpec((block_k, block_n), lambda i, j, kk: (kk, j)),
-            pl.BlockSpec((block_m, 1), lambda i, j, kk: (i, 0)),
-            pl.BlockSpec((1, block_n), lambda i, j, kk: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((block_m, block_n), lambda i, j, kk: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((mp, np_), out_dtype),
-        scratch_shapes=[pltpu.VMEM((block_m, block_n), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * np_ * kp,
-            bytes_accessed=mp * kp + kp * np_
-            + mp * np_ * jnp.dtype(out_dtype).itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(a_q, b_q, a_scale, b_scale)
-    return out[:m, :n]
-
-
 # ---------------------------------------------------------------------------
-# KV-cache quantization helpers (per-token scales; consumed by flash_decode)
+# KV-cache quantization (per-token scales; consumed by the attention kernels)
 # ---------------------------------------------------------------------------
 
 def quantize_kv(

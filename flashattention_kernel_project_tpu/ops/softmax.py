@@ -1,11 +1,6 @@
-"""Softmax microkernels + the online/streaming softmax state machine.
+"""The online/streaming softmax state machine.
 
-Reference ladder (SURVEY.md section 2.2): naive 3-pass block softmax
-(softmax_naive_baseline.cu:56-130) -> warp-shuffle (softmax_warp_shfl
-_baseline.cu:69-115) -> block hybrid two-level reduce
-(softmax_block_hybrid.cu:74-169). On TPU the whole ladder collapses: the VPU
-reduces an (8,128) register row natively, so one Pallas kernel with jnp
-reductions is the "hybrid" endpoint; the interesting part is the *online*
+Reference (SURVEY.md section 2.2): the softmax ladder ends in the *online*
 state machine, which this module exposes as reusable pure functions with two
 mathematically equivalent disciplines:
 
@@ -21,90 +16,17 @@ tests/test_softmax.py because Phase 5 load-bears on it).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from flashattention_kernel_project_tpu.utils.platform import default_interpret
 
 NEG_INF = float(-1e30)  # finite -inf stand-in; exp() of it flushes to 0 in bf16/fp32
 
 
 # ---------------------------------------------------------------------------
-# Row softmax kernel (the whole naive->warp->hybrid ladder, one kernel)
-# ---------------------------------------------------------------------------
-
-_LOG2E = 1.4426950408889634
-
-
-def _softmax_kernel(x_ref, o_ref):
-    # log2 domain: one fused scale on the (x - m) pass, then exp2 —
-    # skipping exp's internal range-reduction multiply per element (the
-    # same discipline the attention kernels run); normalize via one
-    # [rows, 1] reciprocal broadcast-multiplied over the tile (a
-    # full-tile divide is the slower VPU op)
-    x = x_ref[:].astype(jnp.float32)
-    m = jnp.max(x, axis=-1, keepdims=True)
-    e = jnp.exp2((x - m) * _LOG2E)
-    r = 1.0 / jnp.sum(e, axis=-1, keepdims=True)
-    o_ref[:] = (e * r).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_rows", "interpret"))
-def softmax(
-    x: jax.Array, *, block_rows: int = 512, interpret: bool | None = None
-) -> jax.Array:
-    """Row softmax over the last axis. Rows are processed in VMEM blocks; the
-    reference's 3 SMEM passes / shuffle trees become single VPU reductions."""
-    if interpret is None:
-        interpret = default_interpret()
-    orig_shape = x.shape
-    n = orig_shape[-1]
-    x2 = x.reshape(-1, n)
-    rows = x2.shape[0]
-    # VMEM budget: double-buffered in + out blocks plus f32 temps is ~6
-    # live copies of the block. The default 16 MB scoped limit capped
-    # blocks at ~144 rows at n=4096 — too many small programs (the DMA
-    # never reached streaming rate); raise the limit and keep ~6x the
-    # block under it.
-    vmem_mb = 64
-    cap = max(8, (vmem_mb * 2**20 - 2**20) // (6 * 4 * n) // 8 * 8)
-    block_rows = min(block_rows, rows, cap)
-    # prefer a block count that DIVIDES rows: jnp.pad + the output slice
-    # each copy the whole array, and at HBM-resident shapes those two
-    # hidden copies dominate (the r2 "softmax anomaly": 8192 rows with a
-    # 144-row VMEM-capped block padded to 8208 — 216 GB/s measured, on an
-    # idle host, across three different kernel bodies; with the 128-row
-    # divisor block the pad/slice disappear)
-    b = block_rows
-    while rows % b and b > 8:
-        b -= 8
-    if rows % b == 0:
-        block_rows = b
-    pad = (-rows) % block_rows
-    if pad:
-        x2 = jnp.pad(x2, ((0, pad), (0, 0)))
-    out = pl.pallas_call(
-        _softmax_kernel,
-        grid=(x2.shape[0] // block_rows,),
-        in_specs=[pl.BlockSpec((block_rows, n), lambda i: (i, 0))],
-        out_specs=pl.BlockSpec((block_rows, n), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct(x2.shape, x.dtype),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=vmem_mb << 20,
-        ),
-        interpret=interpret,
-    )(x2)
-    return out[:rows].reshape(orig_shape)
-
-
-# ---------------------------------------------------------------------------
-# Online-softmax state machine (pure functions, used inside Pallas kernels,
-# lax.scan bodies, and across-device merges alike)
+# Online-softmax state machine (pure functions, used in lax.scan bodies and
+# across-device merges alike)
 # ---------------------------------------------------------------------------
 
 class SoftmaxState(NamedTuple):

@@ -3,7 +3,7 @@
 The reference is single-GPU; its only "parallelism" is batchxhead grid
 dimensions (SURVEY.md section 2.9). This layer is the designed-fresh
 multi-chip story: a named Mesh, shard_map-wrapped kernels, and XLA
-collectives over ICI. Head sharding follows the idiomatic
+collectives over the interconnect. Head sharding follows the idiomatic
 P(None, "model", ...) pattern (KV heads on the model axis), so the Pallas
 kernels below run unchanged per shard — the mesh is purely a layout concern.
 """

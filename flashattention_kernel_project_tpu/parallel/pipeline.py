@@ -4,10 +4,11 @@ The reference has NO inter-device pipeline (SURVEY.md section 2.9) — its
 nearest analog is the intra-kernel producer/consumer warp pipeline
 (flashattn_streaming_16x16_mw_v5_warp_specialize.cu:75-275) and the
 load(t)/compute(t-1) software pipeline (flashattn_forward_wmma_v5_cp_async
-.cu:221-251). This module is the inter-chip version of the same idea, built
-the TPU way: the layer stack is sharded over the `pipe` axis (each stage
+.cu:221-251). This module is the inter-device version of the same idea:
+the layer stack is sharded over the `pipe` axis (each stage
 owns a contiguous layer slab), microbatch activations rotate stage-to-stage
-with `ppermute` (riding ICI), and the whole schedule is one `lax.scan` of
+with `ppermute` (over the interconnect), and the whole schedule is one
+`lax.scan` of
 n_micro + n_stages - 1 ticks inside `shard_map` — every device runs the
 identical program, XLA overlaps the permute with the next tick's compute.
 
@@ -103,7 +104,7 @@ def pp_loss_fn(
         valid = jnp.logical_and(stage == n_stages - 1, out_idx >= 0)
         nll_sum = jnp.where(valid, jnp.sum(nll), 0.0)
         cnt = jnp.where(valid, nll.size, 0)
-        # rotate activations to the next stage (ICI neighbour ring)
+        # rotate activations to the next stage (neighbour ring)
         perm = [(i, (i + 1) % n_stages) for i in range(n_stages)]
         x_next = jax.lax.ppermute(y, pipe_axis, perm)
         return x_next, (nll_sum, cnt, aux)

@@ -11,7 +11,8 @@ partials merge in normalized (o, lse) form:
   o   = o_a * exp(lse_a - lse) + o_b * exp(lse_b - lse)
 
 The rotation is issued *before* the local attention compute so XLA can
-overlap the ICI transfer with the Pallas kernel — the inter-chip version of
+overlap the interconnect transfer with the Pallas kernel — the inter-chip
+version of
 the reference's load(t)/compute(t-1) software pipeline
 (flashattn_forward_wmma_v5_cp_async.cu:221-251).
 
@@ -79,7 +80,8 @@ def _make_ring(mesh, attend, n_kv, *, causal, seq_axis, data_axis,
 
         dv = kv[-2].shape[-1] if n_kv == 4 else kv[-1].shape[-1]
         for t in range(1, depth):
-            # rotate first so the ICI hop overlaps the local compute below
+            # rotate first so the interconnect hop overlaps the local compute
+            # below
             kv_next = jax.lax.ppermute(kv, seq_axis, perm)
 
             if causal:
@@ -167,7 +169,8 @@ def ring_attention_kv_quant(
 
     BASELINE config 5's shape: long-context INT8 KV sharded over the mesh.
     Identical ring schedule to ring_attention, but each device holds and
-    ROTATES the quantized shard (values + per-token scales) — half the ICI
+    ROTATES the quantized shard (values + per-token scales) — half the
+    interconnect
     bytes per hop vs bf16 — and attends through the fused-dequant kernel
     (ops.flash_attention_kv_quant_with_lse), so the shard is never
     materialized in full precision anywhere.
@@ -204,7 +207,8 @@ def ring_attention_kv_quant(
 # contribution can be computed wherever the shard happens to be: the (dk, dv)
 # accumulators ride the ring WITH the shard and arrive home after a full
 # loop. dq accumulates in place on the query's device. The KV rotation is
-# issued before the local backward kernels so the ICI hop overlaps compute,
+# issued before the local backward kernels so the interconnect hop overlaps
+# compute,
 # exactly like the forward.
 # ---------------------------------------------------------------------------
 
@@ -220,13 +224,9 @@ def ring_attention_trainable_inner(
     function of (q, k, v) local shards, callable from inside any enclosing
     shard_map that carries `seq_axis` (e.g. the context-parallel train step,
     which calls it once per layer). `n_ring` is the size of that axis."""
-    from flashattention_kernel_project_tpu.ops.flash_attention import (
-        _bwd_pallas,
-    )
+    from flashattention_kernel_project_tpu.ops.flash_attention import _bwd
 
     interpret = kernel_kwargs.get("interpret", None)
-    block_q = kernel_kwargs.get("block_q", None)
-    block_k = kernel_kwargs.get("block_k", None)
 
     def _fwd_local(q, kv, *, local_causal):
         k, v = kv
@@ -271,9 +271,9 @@ def ring_attention_trainable_inner(
 
     def _bwd_step(q, k_t, v_t, o, lse, do, *, local_causal):
         sc = sm_scale if sm_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-        return _bwd_pallas(
-            (q, k_t, v_t, o, lse), do, local_causal, sc, 0,
-            block_q, block_k, interpret,
+        return _bwd(
+            (q, k_t, v_t, o, lse), do, causal=local_causal, sm_scale=sc,
+            q_offset=0, interpret=interpret, window=None, sinks=0,
         )
 
     def _ring_bwd(res, do):
@@ -287,7 +287,8 @@ def ring_attention_trainable_inner(
         kv = (k, v)
         dkv = (dk0.astype(jnp.float32), dv0.astype(jnp.float32))
         for t in range(1, n_ring):
-            # rotate the shard first (overlaps the ICI hop with the kernels
+            # rotate the shard first (overlaps the interconnect hop with the
+            # kernels
             # below); its accumulator follows after this step's contribution
             kv_next = jax.lax.ppermute(kv, seq_axis, perm)
             dkv = jax.lax.ppermute(dkv, seq_axis, perm)
@@ -341,7 +342,7 @@ def ring_attention_trainable(
     Returns fn(q[B,H,N,D], k[B,H,S,D], v) -> [B,H,N,Dv] (global lengths)
     that supports jax.grad w.r.t. q, k, v — the missing piece for training
     at sequence lengths one chip cannot hold. Gradient math: FA2 recompute
-    (ops.flash_attention._bwd_pallas) per ring step with the saved global
+    (ops.flash_attention._bwd) per ring step with the saved global
     logsumexp; causal scheduling mirrors the forward (wrapped shards are
     skipped, so their kernels never run in either direction); the (dk, dv)
     accumulators ride the rotating shard home.

@@ -3,7 +3,8 @@ stack over a mesh.
 
 parallel/mesh.py shards the ATTENTION KERNELS; this module shards the whole
 ENGINE — megatron column/row-sharded projections (the two psums per layer
-ride ICI), KV cache head-sharded P(None, "model", None, None), embedding and
+ride the interconnect), KV cache head-sharded P(None, "model", None, None),
+embedding and
 logits replicated. Inside shard_map each chip runs the stock engine
 (models/engine.py) on a LOCAL config (heads and d_ff divided by the axis
 size) — the mesh is purely a layout + two-collectives concern, exactly the
@@ -211,7 +212,8 @@ def make_tp_decode_steps(
     greedy lax.scan (engine.decode_steps / decode_steps_paged) runs INSIDE
     shard_map, so ONE dispatch advances the whole window with
     megatron-sharded weights and the head-sharded (or head-sharded paged)
-    cache; the per-step psums ride ICI inside the scan body exactly as in
+    cache; the per-step psums ride the interconnect inside the scan body
+    exactly as in
     the single-step TP path. fn(params, tokens[B], cache) ->
     (tokens [B, n_steps], cache advanced n_steps)."""
     tp = mesh.shape[model_axis]

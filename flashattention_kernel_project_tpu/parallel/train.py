@@ -6,7 +6,7 @@ the missing layer idiomatically: parameters tensor-sharded over "model"
 "data". Inside shard_map each device runs the Pallas flash-attention kernel
 on its local heads; the only collectives are the two psums after the
 row-parallel projections (attention out, MLP down) and the gradient pmean
-over the data axis — all riding ICI.
+over the data axis — all riding the interconnect.
 """
 
 from __future__ import annotations
@@ -49,8 +49,6 @@ def _tp_forward(cfg, params, tokens, *, model_axis, interpret=None,
             k.transpose(0, 2, 1, 3),
             v.transpose(0, 2, 1, 3),
             causal=True,
-            block_q=min(cfg.block_q, n),
-            block_k=min(cfg.block_k, n),
             interpret=interpret,
         )
         o = o.transpose(0, 2, 1, 3).reshape(b, n, hq_local * cfg.d_head)
@@ -280,8 +278,7 @@ def make_cp_train_step(
 
     n_ring = mesh.shape[seq_axis]
     ring = ring_attention_trainable_inner(
-        n_ring, causal=True, seq_axis=seq_axis,
-        block_q=cfg.block_q, block_k=cfg.block_k, interpret=interpret,
+        n_ring, causal=True, seq_axis=seq_axis, interpret=interpret,
     )
 
     def step(params, tokens):

@@ -8,7 +8,8 @@ all-to-all converts back. Two collectives total (vs P-1 ppermute hops for
 ring), at the cost of requiring heads % ring_size == 0.
 
 Absent in the reference (heads were only a grid dimension, SURVEY.md
-section 2.9); implemented fresh with shard_map + lax.all_to_all over ICI.
+section 2.9); implemented fresh with shard_map + lax.all_to_all over the
+interconnect.
 """
 
 from __future__ import annotations

@@ -12,29 +12,17 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 
 import numpy as np
 
+from flashattention_kernel_project_tpu.runtime.native import build_library
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "dataloader.cpp")
-_SO = os.path.join(_DIR, "libdataloader.so")
 _lock = threading.Lock()
 _lib = None
 _tried = False
-
-
-def _build() -> str | None:
-    cmd = [
-        "g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-        _SRC, "-o", _SO,
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return _SO
-    except (subprocess.SubprocessError, FileNotFoundError, OSError):
-        return None
 
 
 def _load():
@@ -43,12 +31,7 @@ def _load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        stale = (
-            os.path.exists(_SO)
-            and os.path.exists(_SRC)
-            and os.path.getmtime(_SO) < os.path.getmtime(_SRC)
-        )
-        so = _SO if os.path.exists(_SO) and not stale else _build()
+        so = build_library(_SRC)
         if so is None:
             return None
         lib = ctypes.CDLL(so)

@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ oracle library (runtime/oracle.cpp).
 
-Compiles liboracle.so on first use (g++ is in the image); falls back to the
+Compiles the library on first use (see build_library); falls back to the
 numpy oracles in utils.oracles when no compiler is available, so the API is
 always usable. Mirrors the reference's C++ CPU-oracle layer (SURVEY.md
 section 4.1) with a python surface identical to utils.oracles.
@@ -9,6 +9,7 @@ section 4.1) with a python surface identical to utils.oracles.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -19,22 +20,37 @@ from flashattention_kernel_project_tpu.utils import oracles as np_oracles
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "oracle.cpp")
-_SO = os.path.join(_DIR, "liboracle.so")
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> str | None:
-    cmd = [
-        "g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-        _SRC, "-o", _SO,
-    ]
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
+                          "native")
+
+
+def build_library(src: str) -> str | None:
+    """Compile `src` into a shared library under the checkout's gitignored
+    build/native/, named by a hash of the source, and return its path
+    (None without a C++ compiler). A changed source gets a new name, so a
+    stale library is never loaded; a library copied with the tree is never
+    trusted."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    so = os.path.join(_BUILD_DIR, f"lib{stem}-{digest}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", src,
+           "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return _SO
     except (subprocess.SubprocessError, FileNotFoundError, OSError):
         return None
+    os.replace(tmp, so)  # atomic: concurrent builders race harmlessly
+    return so
 
 
 def _load():
@@ -43,7 +59,7 @@ def _load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        so = _SO if os.path.exists(_SO) else _build()
+        so = build_library(_SRC)
         if so is None:
             return None
         lib = ctypes.CDLL(so)
@@ -118,7 +134,6 @@ def gqa_attention(
 # ---------------------------------------------------------------------------
 
 _SCHED_SRC = os.path.join(_DIR, "scheduler.cpp")
-_SCHED_SO = os.path.join(_DIR, "libscheduler.so")
 _sched_lib = None
 _sched_tried = False
 
@@ -129,21 +144,9 @@ def _load_scheduler():
         if _sched_lib is not None or _sched_tried:
             return _sched_lib
         _sched_tried = True
-        so = _SCHED_SO
-        stale = (
-            os.path.exists(so)
-            and os.path.exists(_SCHED_SRC)
-            and os.path.getmtime(so) < os.path.getmtime(_SCHED_SRC)
-        )
-        if not os.path.exists(so) or stale:
-            cmd = [
-                "g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-                _SCHED_SRC, "-o", so,
-            ]
-            try:
-                subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            except (subprocess.SubprocessError, FileNotFoundError, OSError):
-                return None
+        so = build_library(_SCHED_SRC)
+        if so is None:
+            return None
         lib = ctypes.CDLL(so)
         i32, i64, vp = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
         lib.cbs_create.restype = vp

@@ -1,13 +1,12 @@
 from flashattention_kernel_project_tpu.utils.platform import (  # noqa: F401
-    default_interpret,
-    has_tpu,
-    tpu_peak_flops,
-    tpu_hbm_bandwidth,
+    enable_compile_cache,
+    hbm_bandwidth,
+    peak_flops,
+    peaks,
 )
 from flashattention_kernel_project_tpu.utils.benchmarking import (  # noqa: F401
     BenchResult,
     benchmark,
-    benchmark_chained,
 )
 from flashattention_kernel_project_tpu.utils import oracles  # noqa: F401
 from flashattention_kernel_project_tpu.utils.testing import (  # noqa: F401

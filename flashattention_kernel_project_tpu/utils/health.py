@@ -4,11 +4,11 @@ Reference analog (SURVEY.md section 5.3): the reference has only a
 CHECK_CUDA abort macro (`naive_gemm.cu:13-21`) and hand-rolled spin
 timeouts with [STUCK] printf for hang hunting
 (`flashattn_warp_spc_v2/..._v7_2_dbg_hanghunt.cu:54,163,231-234`).
-On TPU the runtime detects device faults for us, but a long-lived serving
+The runtime detects device faults for us, but a long-lived serving
 process still needs: (a) a cheap liveness probe, (b) classification of
 transient vs fatal dispatch errors, and (c) bounded retry for transient
-worker restarts (observed in practice: the remote TPU worker sporadically
-restarts with UNAVAILABLE; the same program re-runs fine).
+runtime faults (UNAVAILABLE and the like, after which the same program
+re-runs fine).
 """
 
 from __future__ import annotations
@@ -48,9 +48,8 @@ def device_healthcheck(timeout_s: float = 30.0) -> dict:
     """Cheap liveness probe: a tiny matmul, forced to completion.
 
     Returns {"ok": bool, "latency_s": float, "device": str, "error": str?}.
-    `jax.block_until_ready` can lie over remote-dispatch paths, so the probe
-    forces a host fetch (np.asarray) — the only trustworthy completion
-    signal (docs/perf_journal.md)."""
+    The probe forces a host fetch (np.asarray), so it completes only once
+    the device has run it."""
     import concurrent.futures
     import numpy as np
 
@@ -101,7 +100,7 @@ def with_retries(
     cooldown; fatal errors (shape errors, OOM, kernel bugs) raise
     immediately — fail fast, like the reference's CHECK_CUDA.
 
-    Donation-aware (advisor r3): if a RETRY attempt fails because an input
+    Donation-aware: if a RETRY attempt fails because an input
     buffer was already deleted (donated to the failed attempt — e.g. the
     paged cache in engine.extend_paged), that is NOT retryable: the state
     must be rebuilt by the caller. It raises a classified RuntimeError

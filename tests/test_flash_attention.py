@@ -28,240 +28,10 @@ def test_flash_forward_mha(rng, causal, n, s):
     q, k, v = _rand_qkv(rng, 2, 2, 2, n, s, 64)
     got = ops.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=causal, block_q=128, block_k=128,
+        causal=causal,
     )
     exp = oracles.gqa_attention(q, k, v, causal=causal)
     assert_rel_l2(got, exp, tol=1e-2)
-
-
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_forward_unstable_fixed_max(rng, causal):
-    """stable=False (fixed-max exp2, no max reduce / no rescale) must match
-    the oracle on bounded-logit inputs, including the lse side output and
-    the tail-mask path."""
-    q, k, v = _rand_qkv(rng, 1, 4, 2, 128, 384, 64)
-    got, lse = ops.flash_attention_with_lse(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=causal, block_q=128, block_k=128, stable=False,
-    )
-    exp = oracles.gqa_attention(q, k, v, causal=causal)
-    assert_rel_l2(got, exp, tol=1e-2)
-
-    ref, ref_lse = ops.flash_attention_with_lse(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=causal, block_q=128, block_k=128, stable=True,
-    )
-    assert_rel_l2(got, np.asarray(ref), tol=1e-2)
-    np.testing.assert_allclose(
-        np.asarray(lse), np.asarray(ref_lse), rtol=1e-3, atol=1e-3
-    )
-
-    # grad flows through the (always-stable) backward
-    def loss(q, k, v):
-        o = ops.flash_attention(
-            q, k, v, causal=causal, block_q=128, block_k=128, stable=False
-        )
-        return (o.astype(jnp.float32) ** 2).sum()
-
-    g = jax.grad(loss)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    assert np.isfinite(np.asarray(g)).all()
-
-
-def test_flash_forward_unstable_overflow_is_detectable(rng):
-    """The fixed-max discipline's documented boundary: logits far outside
-    |s_nat| < ~80 overflow exp2 and the output diverges — and it diverges
-    LOUDLY (non-finite or rel-L2 >> 5e-3), which is exactly what bench.py's
-    cross-check keys on to fall back to the stable kernel. Guards the guard:
-    if someone "fixes" the kernel so overflow fails silently inside the
-    tolerance, this test catches it."""
-    q, k, v = _rand_qkv(rng, 1, 2, 2, 128, 256, 64)
-    q = q * 40.0  # |scores*sm_scale| ~ N(0, 40*sqrt? ) >> 80 natural-log units
-    safe = ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), stable=True,
-        block_q=128, block_k=128,
-    )
-    exp = oracles.gqa_attention(q, k, v)
-    assert_rel_l2(safe, exp, tol=1e-2)  # stable path shrugs it off
-    fast = np.asarray(
-        ops.flash_attention(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), stable=False,
-            block_q=128, block_k=128,
-        ),
-        np.float32,
-    )
-    err = np.linalg.norm(fast - exp) / np.linalg.norm(exp)
-    assert (not np.isfinite(fast).all()) or err >= 5e-3, err
-
-
-@pytest.mark.smoke
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_forward_auto_matches_stable(rng, causal):
-    """stable="auto" (guarded fixed-max) on bounded-logit inputs: takes the
-    fast kernel (guard silent) and matches the oracle + the stable lse."""
-    q, k, v = _rand_qkv(rng, 1, 4, 2, 128, 384, 64)
-    got, lse = ops.flash_attention_with_lse(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=causal, block_q=128, block_k=128, stable="auto",
-    )
-    exp = oracles.gqa_attention(q, k, v, causal=causal)
-    assert_rel_l2(got, exp, tol=1e-2)
-    _, ref_lse = ops.flash_attention_with_lse(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=causal, block_q=128, block_k=128, stable=True,
-    )
-    np.testing.assert_allclose(
-        np.asarray(lse), np.asarray(ref_lse), rtol=1e-3, atol=1e-3
-    )
-
-
-@pytest.mark.parametrize("scale", [60.0, -60.0])
-def test_flash_forward_auto_fallback_on_range_breach(rng, scale):
-    """stable="auto" on inputs OUTSIDE the fixed-max range contract (huge
-    positive / huge negative logits): the per-block bound must route those
-    blocks onto the online-rescale discipline and match the stable kernel
-    — the case where raw stable=False diverges loudly
-    (test_flash_forward_unstable_overflow_is_detectable)."""
-    q, k, v = _rand_qkv(rng, 1, 2, 2, 128, 256, 64)
-    q = q * scale
-    safe = np.asarray(ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), stable=True,
-        causal=True, block_q=128, block_k=128,
-    ), np.float32)
-    auto = np.asarray(ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), stable="auto",
-        causal=True, block_q=128, block_k=128,
-    ), np.float32)
-    assert np.isfinite(auto).all()
-    assert_rel_l2(auto, safe, tol=1e-6)
-
-
-def test_flash_forward_auto_mixed_blocks(rng):
-    """Per-block dispatch: one q block's logits breach the range contract,
-    the rest stay bounded — the hybrid kernel must run stable on exactly
-    the hot block and still match the all-stable answer."""
-    q, k, v = _rand_qkv(rng, 1, 2, 2, 256, 256, 64)
-    q[:, :, :128] *= 60.0
-    safe = np.asarray(ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), stable=True,
-        causal=True, block_q=128, block_k=128,
-    ), np.float32)
-    auto = np.asarray(ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), stable="auto",
-        causal=True, block_q=128, block_k=128,
-    ), np.float32)
-    assert np.isfinite(auto).all()
-    assert_rel_l2(auto, safe, tol=1e-6)
-
-
-def test_flash_forward_auto_gqa_stacked(rng):
-    """auto through the group-stacked fast kernel (the headline config's
-    shape class) and its gradient."""
-    q, k, v = _rand_qkv(rng, 1, 8, 2, 256, 256, 64)
-    got = ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
-        stable="auto",
-    )
-    exp = oracles.gqa_attention(q, k, v, causal=True)
-    assert_rel_l2(got, exp, tol=1e-2)
-
-    def loss(q, k, v):
-        o = ops.flash_attention(q, k, v, causal=True, stable="auto")
-        return (o.astype(jnp.float32) ** 2).sum()
-
-    g = jax.grad(loss)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    assert np.isfinite(np.asarray(g)).all()
-
-
-def test_flash_forward_auto_cached_kmax(rng):
-    """k_max caching mode: auto with ops.k_max_norm(k) precomputed must
-    equal plain auto bit-for-bit (the cached scalar IS the value the
-    kernel would compute), gradients must flow, and an OVER-estimated
-    k_max must stay correct (routes more blocks to the stable branch)."""
-    q, k, v = _rand_qkv(rng, 1, 4, 2, 256, 256, 64)
-    qj, kj, vj = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
-    plain = ops.flash_attention(qj, kj, vj, causal=True, stable="auto")
-    cached = ops.flash_attention(
-        qj, kj, vj, causal=True, stable="auto", k_max=ops.k_max_norm(kj),
-    )
-    np.testing.assert_array_equal(np.asarray(plain), np.asarray(cached))
-    # any over-estimate is sound (falls back toward stable, never wrong)
-    over = ops.flash_attention(
-        qj, kj, vj, causal=True, stable="auto", k_max=1e6,
-    )
-    assert_rel_l2(over, oracles.gqa_attention(q, k, v, causal=True),
-                  tol=1e-2)
-
-    def loss(q, k, v):
-        o = ops.flash_attention(
-            q, k, v, causal=True, stable="auto", k_max=ops.k_max_norm(k)
-        )
-        return (o.astype(jnp.float32) ** 2).sum()
-
-    g = jax.grad(loss)(qj, kj, vj)
-    assert np.isfinite(np.asarray(g)).all()
-
-
-def test_flash_forward_ragged_auto_maps_to_stable(rng):
-    """flash_attention_ragged(stable="auto") routes to the online path
-    explicitly (the ragged kernel has no hybrid instantiation) and matches
-    stable=True exactly (ADVICE r3)."""
-    q, k, v = _rand_qkv(rng, 2, 2, 2, 128, 256, 64)
-    kv_lens = jnp.asarray([200, 256], jnp.int32)
-    q_offsets = jnp.asarray([72, 128], jnp.int32)
-    a = ops.flash_attention_ragged(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_lens, q_offsets,
-        causal=True, stable="auto", block_q=128, block_k=128,
-    )
-    b = ops.flash_attention_ragged(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_lens, q_offsets,
-        causal=True, stable=True, block_q=128, block_k=128,
-    )
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_flash_forward_guard_count_exact(rng):
-    """The guard flag's bad-row count is the TRUE row count (not 8x —
-    ADVICE r3): craft exactly one overflowing q row and expect 1."""
-    from flashattention_kernel_project_tpu.ops.flash_attention import _fwd
-
-    q, k, v = _rand_qkv(rng, 1, 2, 2, 128, 256, 64)
-    q[0, 0, 5, :] = 90.0  # one row far outside the fixed-max range
-    k[:, :, :, :] = np.abs(k)  # keep scores positive so exp2 overflows
-    out, lse, bad = _fwd(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), False, None, 0,
-        128, 128, None, stable=False, guard=True,
-    )
-    assert int(np.asarray(bad)) == 1, np.asarray(bad)
-
-
-def test_flash_forward_auto_kv_quant_breach(rng):
-    """auto x int8 KV on RANGE-BREACHING inputs: the k half of the bound
-    must cover the DEQUANTIZED keys without int8 square wraparound
-    (127^2 mod 256 would certify fast on exactly the inputs that
-    overflow it — round 4 soundness fix). Scaled-up q forces the breach;
-    auto must match the stable quant kernel."""
-    q, k, v = _rand_qkv(rng, 1, 2, 2, 128, 256, 64)
-    q = q * 60.0
-    kq, ks, vq, vs = ops.quantize_kv(jnp.asarray(k), jnp.asarray(v))
-    safe = np.asarray(ops.flash_attention_kv_quant(
-        jnp.asarray(q), kq, ks, vq, vs, causal=True, stable=True,
-    ), np.float32)
-    auto = np.asarray(ops.flash_attention_kv_quant(
-        jnp.asarray(q), kq, ks, vq, vs, causal=True, stable="auto",
-    ), np.float32)
-    assert np.isfinite(auto).all()
-    assert_rel_l2(auto, safe, tol=1e-6)
-
-
-def test_flash_forward_auto_kv_quant(rng):
-    """auto through the int8 KV-cache kernel (guard + quant refs coexist)."""
-    q, k, v = _rand_qkv(rng, 1, 4, 2, 128, 256, 64)
-    kq, ks, vq, vs = ops.quantize_kv(jnp.asarray(k), jnp.asarray(v))
-    got = ops.flash_attention_kv_quant(
-        jnp.asarray(q), kq, ks, vq, vs, causal=True, stable="auto",
-    )
-    exp = oracles.gqa_attention(q, k, v, causal=True)
-    assert_rel_l2(got, exp, tol=2e-2)
 
 
 @pytest.mark.smoke
@@ -269,7 +39,6 @@ def test_flash_forward_gqa(rng):
     q, k, v = _rand_qkv(rng, 1, 8, 2, 256, 256, 64)
     got = ops.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
-        block_q=128, block_k=128,
     )
     exp = oracles.gqa_attention(q, k, v, causal=True)
     assert_rel_l2(got, exp, tol=1e-2)
@@ -280,7 +49,6 @@ def test_flash_forward_ragged_tail(rng):
     q, k, v = _rand_qkv(rng, 1, 2, 2, 200, 333, 64)
     got = ops.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
-        block_q=128, block_k=128,
     )
     exp = oracles.gqa_attention(q, k, v, causal=True)
     assert_rel_l2(got, exp, tol=1e-2)
@@ -290,9 +58,12 @@ def test_flash_forward_block_q_gt_block_k(rng):
     """Regression: with block_q > block_k, rows of a q-block that lie wholly
     above a kv-block get fully-masked score rows; exp(NEG_INF - NEG_INF)=1
     must not leak into l (the reference's 5.4-class bug)."""
+    from flashattention_kernel_project_tpu.ops.flash_attention import _fwd
+
     q, k, v = _rand_qkv(rng, 1, 2, 2, 256, 256, 64)
-    got = ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+    got, _ = _fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.full((1,), 256),
+        jnp.zeros((1,)), causal=True, sm_scale=None, interpret=None,
         block_q=256, block_k=64,
     )
     exp = oracles.gqa_attention(q, k, v, causal=True)
@@ -304,7 +75,7 @@ def test_flash_forward_q_offset(rng):
     q, k, v = _rand_qkv(rng, 1, 2, 2, 128, 384, 64)
     got = ops.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=True, q_offset=256, block_q=128, block_k=128,
+        causal=True, q_offset=256,
     )
     exp = oracles.gqa_attention(q, k, v, causal=True, q_offset=256)
     assert_rel_l2(got, exp, tol=1e-2)
@@ -316,7 +87,7 @@ def test_flash_forward_bf16(rng):
         jnp.asarray(q, dtype=jnp.bfloat16),
         jnp.asarray(k, dtype=jnp.bfloat16),
         jnp.asarray(v, dtype=jnp.bfloat16),
-        causal=True, block_q=128, block_k=128,
+        causal=True,
     )
     exp = oracles.gqa_attention(q, k, v, causal=True)
     assert_rel_l2(np.asarray(got, np.float32), exp, tol=2e-2)
@@ -326,7 +97,7 @@ def test_flash_forward_bf16(rng):
 def test_flash_lse(rng):
     q, k, v = _rand_qkv(rng, 1, 2, 2, 128, 256, 64)
     _, lse = ops.flash_attention_with_lse(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128, block_k=128
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
     )
     scores = np.einsum("bhnd,bhsd->bhns", q, k) / np.sqrt(64)
     exp_lse = np.log(np.sum(np.exp(scores - scores.max(-1, keepdims=True)), -1)) + scores.max(-1)
@@ -345,7 +116,7 @@ def test_flash_attention_ragged(rng):
     got = ops.flash_attention_ragged(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         jnp.asarray(kv_lens), jnp.asarray(q_offsets),
-        causal=True, block_q=32, block_k=32,
+        causal=True,
     )
     for i in range(b):
         exp = oracles.gqa_attention(
@@ -354,32 +125,6 @@ def test_flash_attention_ragged(rng):
             causal=True, q_offset=int(q_offsets[i]),
         )
         assert_rel_l2(np.asarray(got)[i : i + 1], exp, tol=1e-2)
-
-
-def test_flash_attention_ragged_unstable(rng):
-    """Fixed-max discipline on the ragged kernel: per-batch lengths/offsets,
-    a zero-length row, and the serving default shapes all inside the gate."""
-    b, hq, hkv, n, s, d = 3, 4, 2, 64, 160, 32
-    q = rng.standard_normal((b, hq, n, d), dtype=np.float32)
-    k = rng.standard_normal((b, hkv, s, d), dtype=np.float32)
-    v = rng.standard_normal((b, hkv, s, d), dtype=np.float32)
-    kv_lens = np.array([160, 100, 0], np.int32)
-    q_offsets = np.array([96, 36, 0], np.int32)
-
-    got = np.asarray(ops.flash_attention_ragged(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        jnp.asarray(kv_lens), jnp.asarray(q_offsets),
-        causal=True, block_q=32, block_k=32, stable=False,
-    ))
-    assert np.isfinite(got).all()
-    assert np.abs(got[2]).max() == 0.0  # dead row stays exact zeros
-    for i in range(2):
-        exp = oracles.gqa_attention(
-            q[i : i + 1], k[i : i + 1, :, : kv_lens[i]],
-            v[i : i + 1, :, : kv_lens[i]],
-            causal=True, q_offset=int(q_offsets[i]),
-        )
-        assert_rel_l2(got[i : i + 1], exp, tol=1e-2)
 
 
 def test_flash_attention_ragged_zero_len(rng):
@@ -391,7 +136,7 @@ def test_flash_attention_ragged_zero_len(rng):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         jnp.asarray([64, 0], dtype=jnp.int32),
         jnp.asarray([32, 0], dtype=jnp.int32),
-        causal=True, block_q=32, block_k=32,
+        causal=True,
     )
     assert np.isfinite(np.asarray(got)).all()
     assert np.abs(np.asarray(got)[1]).max() == 0.0
@@ -399,13 +144,9 @@ def test_flash_attention_ragged_zero_len(rng):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_vs_float64(rng, causal):
-    """Pallas backward vs a float64 numpy oracle (GQA + ragged tails).
-
-    The f32 autodiff reference itself carries ~4e-3 cancellation noise in
-    ds = p * (dp - delta); the float64 oracle shows the Pallas kernels are
-    ~100x tighter than that (measured ~3e-5)."""
+    """Pallas backward vs a float64 numpy oracle (GQA + ragged tails)."""
     from flashattention_kernel_project_tpu.ops.flash_attention import (
-        _bwd_pallas,
+        _bwd,
         _fwd,
     )
 
@@ -437,37 +178,14 @@ def test_flash_backward_vs_float64(rng, causal):
     dv64 = dv64.reshape(b, hkv, group, s, d).sum(2)
 
     qj, kj, vj, gj = map(jnp.asarray, (q, k, v, g))
-    out, lse = _fwd(qj, kj, vj, causal, None, 0, 32, 64, True)
-    dq, dk, dv = _bwd_pallas(
-        (qj, kj, vj, out, lse), gj, causal, sm, 0, 32, 64, True
+    kw = dict(causal=causal, sm_scale=sm, block_q=32, block_k=64,
+              interpret=True)
+    out, lse = _fwd(qj, kj, vj, jnp.full((b,), s), jnp.zeros((b,)), **kw)
+    dq, dk, dv = _bwd(
+        (qj, kj, vj, out, lse), gj, q_offset=0, window=None, sinks=0, **kw
     )
     for got, want in ((dq, dq64), (dk, dk64), (dv, dv64)):
         assert_rel_l2(np.asarray(got, np.float64), want, tol=5e-4)
-
-
-def test_flash_backward_fused_matches_two_kernel(rng):
-    """The fused dkdv+dq kernel (dq partials summed over kv blocks,
-    VERDICT r4 task 2) must match the two-kernel structure on the same
-    residuals — same math, different schedule (bf16 partials introduce
-    one extra rounding, hence the small tolerance)."""
-    from flashattention_kernel_project_tpu.ops.flash_attention import (
-        _bwd_pallas,
-        _fwd,
-    )
-
-    b, hq, hkv, n, s, d = 1, 4, 2, 96, 1280, 32
-    q, k, v = _rand_qkv(rng, b, hq, hkv, n, s, d)
-    g = rng.standard_normal((b, hq, n, d), dtype=np.float32)
-    qj, kj, vj = map(jnp.asarray, (q, k, v))
-    gj = jnp.asarray(g).astype(qj.dtype)
-    sm = 1.0 / np.sqrt(d)
-    out, lse = _fwd(qj, kj, vj, True, None, 0, 32, 128, True)
-    res = (qj, kj, vj, out, lse)
-    fused = _bwd_pallas(res, gj, True, sm, 0, 32, 128, True, fuse_dq=True)
-    twok = _bwd_pallas(res, gj, True, sm, 0, 32, 128, True, fuse_dq=False)
-    for a, b_ in zip(fused, twok):
-        assert_rel_l2(np.asarray(a, np.float32), np.asarray(b_, np.float32),
-                      tol=5e-3)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -489,7 +207,7 @@ def test_flash_gradients(rng, causal):
         return jnp.einsum("bhns,bhsd->bhnd", p, vv)
 
     def loss_flash(q, k, v):
-        o = ops.flash_attention(q, k, v, causal=causal, block_q=32, block_k=32)
+        o = ops.flash_attention(q, k, v, causal=causal)
         return jnp.sum(o * jnp.cos(o))
 
     def loss_naive(q, k, v):
@@ -502,20 +220,6 @@ def test_flash_gradients(rng, causal):
         assert_rel_l2(gf, gn, tol=1e-3)
 
 
-@pytest.mark.parametrize("num_sub,pipe", [(2, True), (2, False), (4, True)])
-def test_flash_forward_num_sub(rng, num_sub, pipe):
-    """KV sub-tiling knob (MXU/VPU interleave experiments) stays correct."""
-    from flashattention_kernel_project_tpu.ops.flash_attention import _fwd
-
-    q, k, v = _rand_qkv(rng, 1, 4, 2, 96, 160, 32)
-    out, _ = _fwd(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        True, None, 0, 32, 64, True, num_sub, pipe,
-    )
-    want = oracles.gqa_attention(q, k, v, causal=True)
-    assert_rel_l2(np.asarray(out), want, tol=1e-3)
-
-
 # ---------------------------------------------------------------------------
 # KV-quantized forward (fused dequant at the K/V load stage — SURVEY Phase 4)
 # ---------------------------------------------------------------------------
@@ -526,16 +230,15 @@ def _dequant_kv(k_q, k_s, v_q, v_s):
     return kd, vd
 
 
-@pytest.mark.parametrize("stable", [True, False])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kv_quant_int8(rng, causal, stable):
+def test_flash_kv_quant_int8(rng, causal):
     """Dense forward vs the oracle on the DEQUANTIZED cache (same-bit-width
     comparison per BASELINE's numerics gate), tail block + GQA included."""
     q, k, v = _rand_qkv(rng, 2, 4, 2, 128, 320, 64)  # 320 % 128 -> tail
     k_q, k_s, v_q, v_s = ops.quantize_kv(jnp.asarray(k), jnp.asarray(v))
     got = ops.flash_attention_kv_quant(
         jnp.asarray(q), k_q, k_s, v_q, v_s,
-        causal=causal, block_q=128, block_k=128, stable=stable,
+        causal=causal,
     )
     kd, vd = _dequant_kv(k_q, k_s, v_q, v_s)
     exp = oracles.gqa_attention(q, kd, vd, causal=causal)
@@ -551,7 +254,7 @@ def test_flash_kv_quant_fp8(rng):
     assert k_q.dtype == jnp.float8_e4m3fn
     got = ops.flash_attention_kv_quant(
         jnp.asarray(q), k_q, k_s, v_q, v_s,
-        causal=True, block_q=64, block_k=128,
+        causal=True,
     )
     kd, vd = _dequant_kv(k_q, k_s, v_q, v_s)
     exp = oracles.gqa_attention(q, kd, vd, causal=True)
@@ -565,18 +268,17 @@ def test_flash_kv_quant_matches_bf16_path(rng):
     k_q, k_s, v_q, v_s = ops.quantize_kv(jnp.asarray(k), jnp.asarray(v))
     got = ops.flash_attention_kv_quant(
         jnp.asarray(q), k_q, k_s, v_q, v_s,
-        causal=True, block_q=32, block_k=64,
+        causal=True,
     )
     kd, vd = _dequant_kv(k_q, k_s, v_q, v_s)
     ref = ops.flash_attention(
         jnp.asarray(q), jnp.asarray(kd), jnp.asarray(vd),
-        causal=True, block_q=32, block_k=64,
+        causal=True,
     )
     assert_rel_l2(got, np.asarray(ref), tol=1e-3)
 
 
-@pytest.mark.parametrize("stable", [True, False])
-def test_flash_ragged_kv_quant(rng, stable):
+def test_flash_ragged_kv_quant(rng):
     """Ragged fused-dequant kernel: per-batch lengths/offsets against a live
     int8 cache — the engine.extend path — incl. a zero-length row."""
     b, hq, hkv, n, s, d = 3, 4, 2, 64, 160, 32
@@ -590,7 +292,7 @@ def test_flash_ragged_kv_quant(rng, stable):
     got = np.asarray(ops.flash_attention_ragged_kv_quant(
         jnp.asarray(q), k_q, k_s, v_q, v_s,
         jnp.asarray(kv_lens), jnp.asarray(q_offsets),
-        causal=True, block_q=32, block_k=32, stable=stable,
+        causal=True,
     ))
     assert np.isfinite(got).all()
     assert np.abs(got[2]).max() == 0.0  # dead row stays exact zeros
@@ -608,22 +310,21 @@ def test_flash_ragged_kv_quant(rng, stable):
 # Sliding-window attention (causal band; block-level skip outside the band)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("stable", [True, False])
 @pytest.mark.parametrize("window", [48, 128, 1000])
-def test_flash_forward_window(rng, window, stable):
+def test_flash_forward_window(rng, window):
     """Windowed causal forward vs the banded oracle; window=1000 > seq is
-    identical to plain causal; the band crosses many 32-blocks."""
+    identical to plain causal; the band crosses several 64-row tiles."""
     q, k, v = _rand_qkv(rng, 1, 4, 2, 256, 256, 32)
     got = ops.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=True, block_q=32, block_k=32, window=window, stable=stable,
+        causal=True, window=window,
     )
     exp = oracles.gqa_attention(q, k, v, causal=True, window=window)
     assert_rel_l2(got, exp, tol=1e-2)
     if window > 256:
         plain = ops.flash_attention(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-            causal=True, block_q=32, block_k=32, stable=stable,
+            causal=True,
         )
         assert_rel_l2(got, np.asarray(plain), tol=1e-6)
 
@@ -645,7 +346,7 @@ def test_flash_window_gradients(rng):
 
     def loss_f(q, k, v):
         o = ops.flash_attention(
-            q, k, v, causal=True, block_q=32, block_k=32, window=window
+            q, k, v, causal=True, window=window
         )
         return jnp.sum(o * jnp.cos(o))
 
@@ -671,7 +372,7 @@ def test_flash_ragged_window(rng):
     got = np.asarray(ops.flash_attention_ragged(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         jnp.asarray(kv_lens), jnp.asarray(q_offsets),
-        causal=True, block_q=32, block_k=32, window=window,
+        causal=True, window=window,
     ))
     for i in range(b):
         exp = oracles.gqa_attention(
@@ -688,47 +389,23 @@ def test_flash_kv_quant_window(rng):
     k_q, k_s, v_q, v_s = ops.quantize_kv(jnp.asarray(k), jnp.asarray(v))
     got = ops.flash_attention_kv_quant(
         jnp.asarray(q), k_q, k_s, v_q, v_s,
-        causal=True, block_q=32, block_k=32, window=40, stable=False,
+        causal=True, window=40,
     )
     kd, vd = _dequant_kv(k_q, k_s, v_q, v_s)
     exp = oracles.gqa_attention(q, kd, vd, causal=True, window=40)
     assert_rel_l2(got, exp, tol=1e-2)
 
 
-@pytest.mark.parametrize("stable", [True, False])
-def test_flash_forward_window_sinks(rng, stable):
+def test_flash_forward_window_sinks(rng):
     """StreamingLLM attention sinks: first `sinks` keys stay visible below
     the sliding window; blocks between sink and band stay skipped."""
     q, k, v = _rand_qkv(rng, 1, 4, 2, 256, 256, 32)
     got = ops.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=True, block_q=32, block_k=32, window=48, sinks=16,
-        stable=stable,
+        causal=True, window=48, sinks=16,
     )
     exp = oracles.gqa_attention(q, k, v, causal=True, window=48, sinks=16)
     assert_rel_l2(got, exp, tol=1e-2)
-
-
-def test_flash_forward_window_sinks_narrow_step(rng):
-    """The windowed grid's NARROW sink step (round 4): block_k >= 256 with
-    sinks < 128 routes far-from-the-head q blocks through the dedicated
-    [sink_w]-wide instantiation (resident sink operands, aliased j==0
-    index) — must match the oracle and the stable kernel everywhere,
-    including the early q blocks that keep the full masked cell."""
-    q, k, v = _rand_qkv(rng, 1, 2, 2, 2048, 2048, 32)
-    got = ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=True, block_q=128, block_k=256, window=384, sinks=64,
-        stable=False,
-    )
-    exp = oracles.gqa_attention(q, k, v, causal=True, window=384, sinks=64)
-    assert_rel_l2(got, exp, tol=1e-2)
-    ref = ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        causal=True, block_q=128, block_k=256, window=384, sinks=64,
-        stable=True,
-    )
-    assert_rel_l2(got, np.asarray(ref), tol=1e-2)
 
 
 def test_flash_window_sinks_gradients(rng):
@@ -748,7 +425,7 @@ def test_flash_window_sinks_gradients(rng):
 
     def loss_f(q, k, v):
         o = ops.flash_attention(
-            q, k, v, causal=True, block_q=32, block_k=32,
+            q, k, v, causal=True,
             window=window, sinks=sinks,
         )
         return jnp.sum(o * jnp.cos(o))
@@ -763,9 +440,11 @@ def test_flash_window_sinks_gradients(rng):
 
 
 def test_flash_forward_fuzz_configs(rng):
-    """Property sweep: random (shape, GQA ratio, causal, stable, window,
-    sinks, blocks) combinations against the oracle — the corner
+    """Property sweep: random (shape, GQA ratio, causal, window, sinks,
+    tiles) combinations against the oracle — the corner
     interactions no single targeted test covers."""
+    from flashattention_kernel_project_tpu.ops.flash_attention import _fwd
+
     r = np.random.default_rng(123)
     for trial in range(12):
         hkv = int(r.choice([1, 2, 4]))
@@ -773,7 +452,6 @@ def test_flash_forward_fuzz_configs(rng):
         n = int(r.choice([48, 64, 96, 128]))
         d = int(r.choice([32, 64]))
         causal = bool(r.integers(0, 2))
-        stable = bool(r.integers(0, 2))
         window = None
         sinks = 0
         if causal and r.integers(0, 2):
@@ -785,26 +463,28 @@ def test_flash_forward_fuzz_configs(rng):
         q = rng.standard_normal((1, hkv * g, n, d), dtype=np.float32)
         k = rng.standard_normal((1, hkv, n, d), dtype=np.float32)
         v = rng.standard_normal((1, hkv, n, d), dtype=np.float32)
-        out = ops.flash_attention(
+        out, _ = _fwd(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-            causal=causal, stable=stable, window=window, sinks=sinks,
+            jnp.full((1,), n), jnp.zeros((1,)), causal=causal,
+            sm_scale=None, interpret=None, window=window, sinks=sinks,
             block_q=bq, block_k=bk,
         )
         exp = oracles.gqa_attention(
             q, k, v, causal=causal, window=window, sinks=sinks
         )
-        cfgs = (hkv, g, n, d, causal, stable, window, sinks, bq, bk)
+        cfgs = (hkv, g, n, d, causal, window, sinks, bq, bk)
         assert_rel_l2(np.asarray(out), exp, 2e-5, msg=str(cfgs))
 
 
 def test_flash_backward_fuzz_configs(rng):
-    """Backward property sweep: random (GQA, causal, window, blocks)
-    configs — Pallas dq/dk/dv vs the fp32 autodiff reference."""
+    """Backward property sweep: random (GQA, causal, window, length)
+    configs — Pallas dq/dk/dv vs the fp32 autodiff reference; 100 tokens
+    span two tiles with a tail."""
     r = np.random.default_rng(321)
     for trial in range(6):
         hkv = int(r.choice([1, 2]))
         g = int(r.choice([1, 2]))
-        n = int(r.choice([48, 64]))
+        n = int(r.choice([48, 100]))
         d = 32
         causal = bool(r.integers(0, 2))
         window = int(r.integers(8, n)) if causal and r.integers(0, 2) else None
@@ -813,10 +493,7 @@ def test_flash_backward_fuzz_configs(rng):
         v = jnp.asarray(rng.standard_normal((1, hkv, n, d), dtype=np.float32))
 
         def loss(q, k, v, causal=causal, window=window):
-            o = ops.flash_attention(
-                q, k, v, causal=causal, window=window,
-                block_q=16, block_k=16,
-            )
+            o = ops.flash_attention(q, k, v, causal=causal, window=window)
             return jnp.sum(o * jnp.sin(o))
 
         gq, gk, gv = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)

@@ -14,7 +14,7 @@ def test_healthcheck_ok():
 
 def test_transient_classification():
     assert health.is_transient_error(
-        RuntimeError("UNAVAILABLE: TPU worker process crashed or restarted")
+        RuntimeError("UNAVAILABLE: worker process crashed or restarted")
     )
     assert not health.is_transient_error(ValueError("shape mismatch"))
 

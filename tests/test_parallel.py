@@ -30,7 +30,7 @@ def test_head_sharded_attention(rng, mesh8):
     q = rng.standard_normal((b, hq, n, d), dtype=np.float32)
     k = rng.standard_normal((b, hkv, n, d), dtype=np.float32)
     v = rng.standard_normal((b, hkv, n, d), dtype=np.float32)
-    fn = parallel.head_sharded_attention(mesh8, causal=True, block_q=64, block_k=64)
+    fn = parallel.head_sharded_attention(mesh8, causal=True)
     got = fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     exp = oracles.gqa_attention(q, k, v, causal=True)
     assert_rel_l2(got, exp, tol=1e-2)
@@ -41,7 +41,7 @@ def test_head_sharded_attention_2d_mesh(rng, mesh_2x4):
     q = rng.standard_normal((b, hq, n, d), dtype=np.float32)
     k = rng.standard_normal((b, hkv, n, d), dtype=np.float32)
     v = rng.standard_normal((b, hkv, n, d), dtype=np.float32)
-    fn = parallel.head_sharded_attention(mesh_2x4, causal=True, block_q=32, block_k=32)
+    fn = parallel.head_sharded_attention(mesh_2x4, causal=True)
     got = fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     exp = oracles.gqa_attention(q, k, v, causal=True)
     assert_rel_l2(got, exp, tol=1e-2)
@@ -76,7 +76,7 @@ def test_ring_attention(rng, causal):
     k = rng.standard_normal((b, h, n, d), dtype=np.float32)
     v = rng.standard_normal((b, h, n, d), dtype=np.float32)
     fn = parallel.ring_attention(
-        mesh, causal=causal, data_axis=None, block_q=32, block_k=32
+        mesh, causal=causal, data_axis=None
     )
     got = fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     exp = oracles.gqa_attention(q, k, v, causal=causal)
@@ -91,11 +91,10 @@ def test_ring_attention_matches_single_device_kernel(rng):
     k = rng.standard_normal((b, h, n, d), dtype=np.float32)
     v = rng.standard_normal((b, h, n, d), dtype=np.float32)
     ring = parallel.ring_attention(
-        mesh, causal=True, data_axis=None, block_q=32, block_k=32
+        mesh, causal=True, data_axis=None
     )(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     single = ops.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
-        block_q=32, block_k=32,
     )
     assert_rel_l2(ring, np.asarray(single), tol=1e-3)
 
@@ -108,7 +107,7 @@ def test_ulysses_attention(rng, causal):
     k = rng.standard_normal((b, h, n, d), dtype=np.float32)
     v = rng.standard_normal((b, h, n, d), dtype=np.float32)
     fn = parallel.ulysses_attention(
-        mesh, causal=causal, data_axis=None, block_q=32, block_k=32
+        mesh, causal=causal, data_axis=None
     )
     got = fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     exp = oracles.gqa_attention(q, k, v, causal=causal)
@@ -141,13 +140,12 @@ def test_ring_attention_kv_quant(rng, causal):
     k_q, k_s, v_q, v_s = ops.quantize_kv(jnp.asarray(k), jnp.asarray(v))
 
     fn = parallel.ring_attention_kv_quant(
-        mesh, causal=causal, data_axis=None, block_q=32, block_k=32
+        mesh, causal=causal, data_axis=None
     )
     got = np.asarray(fn(jnp.asarray(q), k_q, k_s, v_q, v_s))
 
     single = ops.flash_attention_kv_quant(
         jnp.asarray(q), k_q, k_s, v_q, v_s, causal=causal,
-        block_q=32, block_k=32,
     )
     assert_rel_l2(got, np.asarray(single), tol=1e-3)
 
@@ -197,7 +195,7 @@ def test_ring_attention_trainable_grads(rng, causal):
     v = jnp.asarray(rng.standard_normal((b, h, n, d), dtype=np.float32))
 
     ring = parallel.ring_attention_trainable(
-        mesh, causal=causal, data_axis=None, block_q=32, block_k=32
+        mesh, causal=causal, data_axis=None
     )
 
     def loss_ring(q, k, v):
@@ -205,7 +203,7 @@ def test_ring_attention_trainable_grads(rng, causal):
         return jnp.sum(o * jnp.cos(o))
 
     def loss_single(q, k, v):
-        o = ops.flash_attention(q, k, v, causal=causal, block_q=32, block_k=32)
+        o = ops.flash_attention(q, k, v, causal=causal)
         return jnp.sum(o * jnp.cos(o))
 
     val_r, grads_r = jax.value_and_grad(loss_ring, argnums=(0, 1, 2))(q, k, v)
@@ -244,7 +242,7 @@ def test_ulysses_gradients(rng):
     k = jnp.asarray(rng.standard_normal((b, h, n, d), dtype=np.float32))
     v = jnp.asarray(rng.standard_normal((b, h, n, d), dtype=np.float32))
     fn = parallel.ulysses_attention(
-        mesh, causal=True, data_axis=None, block_q=32, block_k=32
+        mesh, causal=True, data_axis=None
     )
 
     def loss_u(q, k, v):
@@ -252,7 +250,7 @@ def test_ulysses_gradients(rng):
         return jnp.sum(o * jnp.cos(o))
 
     def loss_s(q, k, v):
-        o = ops.flash_attention(q, k, v, causal=True, block_q=32, block_k=32)
+        o = ops.flash_attention(q, k, v, causal=True)
         return jnp.sum(o * jnp.cos(o))
 
     gu = jax.grad(loss_u, argnums=(0, 1, 2))(q, k, v)
@@ -271,7 +269,7 @@ def test_tp_engine_matches_single_device():
 
     cfg = models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=2, n_heads=8, n_kv_heads=4,
-        d_head=16, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=16, d_ff=64, dtype=jnp.float32,
     )
     mesh = parallel.make_mesh({"model": 4}, devices=jax.devices()[:4])
     params = models.init_params(cfg, jax.random.PRNGKey(0))
@@ -320,7 +318,7 @@ def test_tp_engine_quantized_cache():
 
     cfg = models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=2, n_heads=8, n_kv_heads=4,
-        d_head=16, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=16, d_ff=64, dtype=jnp.float32,
     )
     mesh = parallel.make_mesh({"model": 4}, devices=jax.devices()[:4])
     params = models.init_params(cfg, jax.random.PRNGKey(0))
@@ -354,11 +352,10 @@ def test_ring_attention_window(rng):
     for w in (48, 100, 200):  # < shard, spanning 2 shards, spanning 4
         fn = parallel.ring_attention(
             mesh_sp4, causal=True, data_axis=None, window=w,
-            block_q=32, block_k=32,
         )
         out = fn(q, k, v)
         ref = ops.flash_attention(
-            q, k, v, causal=True, window=w, block_q=32, block_k=32
+            q, k, v, causal=True, window=w
         )
         assert_rel_l2(np.asarray(out), np.asarray(ref), 1e-5)
 
@@ -373,12 +370,10 @@ def test_ring_attention_kv_quant_window(rng):
     kq, ks, vq, vs = ops.quantize_kv(k, v)
     fn = parallel.ring_attention_kv_quant(
         mesh_sp4, causal=True, data_axis=None, window=100,
-        block_q=32, block_k=32,
     )
     out = fn(q, kq, ks, vq, vs)
     ref = ops.flash_attention_kv_quant(
         q, kq, ks, vq, vs, causal=True, window=100,
-        block_q=32, block_k=32,
     )
     assert_rel_l2(np.asarray(out), np.asarray(ref), 1e-5)
 
@@ -392,7 +387,7 @@ def test_sp_decode_engine_matches_single_device():
 
     cfg = models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
-        d_head=16, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=16, d_ff=64, dtype=jnp.float32,
     )
     mesh = parallel.make_mesh({"sp": 4}, devices=jax.devices()[:4])
     params = models.init_params(cfg, jax.random.PRNGKey(0))
@@ -432,7 +427,7 @@ def test_sp_decode_engine_quantized():
 
     cfg = models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
-        d_head=16, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=16, d_ff=64, dtype=jnp.float32,
     )
     mesh = parallel.make_mesh({"sp": 4}, devices=jax.devices()[:4])
     params = models.init_params(cfg, jax.random.PRNGKey(0))

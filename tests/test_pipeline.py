@@ -14,7 +14,7 @@ from flashattention_kernel_project_tpu.models import transformer as tfm
 def cfg():
     return models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=4, n_heads=4, n_kv_heads=2,
-        d_head=8, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=8, d_ff=64, dtype=jnp.float32,
     )
 
 

@@ -18,8 +18,6 @@ CFG = models.TransformerConfig(
     d_head=16,
     d_ff=128,
     dtype=jnp.float32,
-    block_q=32,
-    block_k=32,
 )
 
 
@@ -113,7 +111,7 @@ def test_scheduler_tp_mesh_matches_single_device():
 
     cfg = models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=2, n_heads=8, n_kv_heads=4,
-        d_head=16, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=16, d_ff=64, dtype=jnp.float32,
     )
     params = models.init_params(cfg, jax.random.PRNGKey(0))
     mesh = parallel.make_mesh({"model": 4}, devices=jax.devices()[:4])
@@ -401,7 +399,7 @@ def test_scheduler_multi_step_matches_plain():
 
 
 def test_scheduler_multi_step_tp_mesh_matches_plain():
-    """multi_step x TP mesh (VERDICT r4 task 6): the decode window's
+    """multi_step x TP mesh: the decode window's
     lax.scan runs INSIDE shard_map over the tensor-parallel mesh
     (tp_engine.make_tp_decode_steps) and must produce exactly the plain
     single-device scheduler's tokens — linear and paged backends."""
@@ -409,7 +407,7 @@ def test_scheduler_multi_step_tp_mesh_matches_plain():
 
     cfg = models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=2, n_heads=8, n_kv_heads=4,
-        d_head=16, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=16, d_ff=64, dtype=jnp.float32,
     )
     params = models.init_params(cfg, jax.random.PRNGKey(0))
     mesh = parallel.make_mesh({"model": 4}, devices=jax.devices()[:4])
@@ -498,7 +496,7 @@ def test_scheduler_tp_paged_prefix_matches_single_device():
 
     cfg = models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=2, n_heads=8, n_kv_heads=4,
-        d_head=16, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=16, d_ff=64, dtype=jnp.float32,
     )
     params = models.init_params(cfg, jax.random.PRNGKey(0))
     mesh = parallel.make_mesh({"model": 4}, devices=jax.devices()[:4])
@@ -554,7 +552,7 @@ def test_scheduler_streaming_callbacks():
 
 
 def test_scheduler_multi_step_paged_matches_plain():
-    """multi_step x paged (VERDICT r4 task 7): device-resident decode
+    """multi_step x paged: device-resident decode
     windows over the page pool must produce the plain paged scheduler's
     tokens exactly, including page allocation for the window's overshoot
     rows past a request's budget."""
@@ -648,7 +646,7 @@ def test_scheduler_speculative_over_tp_mesh():
 
     cfg = models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=2, n_heads=8, n_kv_heads=4,
-        d_head=16, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=16, d_ff=64, dtype=jnp.float32,
     )
     params = models.init_params(cfg, jax.random.PRNGKey(0))
     draft_cfg = dc.replace(cfg, n_layers=1, d_ff=32, n_heads=4, n_kv_heads=2)
@@ -752,7 +750,7 @@ def test_scheduler_speculative_paged_over_tp_mesh():
 
     cfg = models.TransformerConfig(
         vocab_size=64, d_model=32, n_layers=2, n_heads=8, n_kv_heads=4,
-        d_head=16, d_ff=64, dtype=jnp.float32, block_q=16, block_k=16,
+        d_head=16, d_ff=64, dtype=jnp.float32,
     )
     params = models.init_params(cfg, jax.random.PRNGKey(0))
     draft_cfg = dc.replace(cfg, n_layers=1, d_ff=32, n_heads=4, n_kv_heads=2)

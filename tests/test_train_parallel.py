@@ -17,8 +17,6 @@ CFG = models.TransformerConfig(
     d_head=16,
     d_ff=128,
     dtype=jnp.float32,
-    block_q=32,
-    block_k=32,
 )
 
 
